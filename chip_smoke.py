@@ -1,0 +1,336 @@
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py                   # what the check runs
+    python3 chip_smoke.py --profile DIR     # also a torch.profiler breakdown of
+                                            # 3 train steps, written under DIR
+
+Phases (any failure exits non-zero; nothing is caught to exit 0):
+  1. the card: name and power limit (nvidia-smi), TF32 off;
+  2. build every CUDA kernel of the main path from this checkout's sources;
+  3. each kernel against its plain PyTorch version on the card, forward and
+     backward, at the main path's shapes and a few others;
+  4. the main path at the reference's full width: a Trainer at the default
+     config (nf=8, 32 latents, 41x49x35, fp32, per-one-hot decoder norm
+     statistics, GLM maps on, conv5 kernel on) trains one epoch over 128
+     synthetic volumes held on the card (batch 32, 4 steps), then 20 timed
+     steps; every loss must be finite and every kernel must have launched
+     once per forward.  One deterministic B=4 forward on the card must match
+     the same model's CPU forward (plain kernels), on well-conditioned
+     inducing grids: tot_loss rtol 1e-4;
+  5. one JSON line with the kernels' numbers, one with the step time;
+  6. as the last line: {"ok": true, "device": {...}}.
+Imports nothing of JAX or of the JAX package.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+SEED = 0
+N_VOLS, BATCH, TIMED_STEPS = 128, 32, 20
+XU_RANGES = [[-2.0, 2.0]] * 6          # as bench.py
+# H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, HBM3
+FP32_FLOPS, HBM_BYTES_PER_S = 67e12, 3.35e12
+
+
+def fail(msg: str):
+    print(f"chip_smoke: FAILED: {msg}", file=sys.stderr)
+    sys.exit(1)
+
+
+def events_ms(fn, iters: int = 200, warmup: int = 10) -> float:
+    """Mean CUDA-event time of fn() over `iters` back-to-back calls.  For a
+    function of a few microseconds of work this is the host's launch rate,
+    not the kernels' time."""
+    for _ in range(warmup):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def kernel_events(prof):
+    """The device (kernel) rows of a torch.profiler run."""
+    return [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def device_ms(fn, iters: int = 50, warmup: int = 10):
+    """Mean device time of fn(): the summed time of every kernel that
+    `iters` calls launch, from torch.profiler, over `iters`.  Returns
+    (ms, kernel names)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    kernels = kernel_events(prof)
+    return (sum(e.self_device_time_total for e in kernels) / 1e3 / iters,
+            sorted(e.key for e in kernels))
+
+
+# ---------------------------------------------------------------------------
+# conv5
+# ---------------------------------------------------------------------------
+
+CONV5_SHAPES = {  # (B, Ci, D, H, W, Co)
+    "main": (32, 16, 8, 10, 6, 16),      # nf=8 on 41x49x35, batch 32
+    "odd-batch": (3, 16, 8, 10, 6, 16),
+    "mni": (4, 16, 20, 25, 20, 16),      # 91x109x91 grid
+    "thin": (4, 4, 3, 4, 3, 4),          # nf=2 on 21x25x21
+}
+
+
+def conv5_inputs(shape, gen):
+    bsz, ci, d, h, w, co = shape
+    x = torch.randn((bsz, ci, d, h, w), generator=gen, device="cuda")
+    bound = 1.0 / np.sqrt(27 * ci)  # torch-default init bound
+    wt = (torch.rand((co, ci, 3, 3, 3), generator=gen, device="cuda") * 2 - 1) * bound
+    b = (torch.rand((co,), generator=gen, device="cuda") * 2 - 1) * bound
+    return x, wt, b
+
+
+def check_conv5(conv5_mod):
+    """Kernel vs plain on the card; returns (max_abs_err at the main shape, timings)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    main_err = None
+    for name, shape in CONV5_SHAPES.items():
+        x, w, b = conv5_inputs(shape, gen)
+        got = conv5_mod.conv5_cuda(x, w, b)
+        torch.cuda.synchronize()
+        want = conv5_mod.conv5_plain(x, w, b)
+        err = float((got - want).abs().max())
+        # fp32 sums of 27*Ci products in another order: 2e-5 at unit scale
+        tol = 2e-5 * max(1.0, float(want.abs().max()))
+        print(f"conv5 {name} {tuple(x.shape)} -> {tuple(got.shape)}: "
+              f"max_abs_err {err:.3e} (tol {tol:.1e})")
+        if not err <= tol:
+            fail(f"conv5 kernel disagrees with its plain version at {name}")
+        # backward through the autograd Function vs autograd of the plain version
+        xs = [t.clone().requires_grad_(True) for t in (x, w, b)]
+        xp = [t.clone().requires_grad_(True) for t in (x, w, b)]
+        g = torch.randn(want.shape, generator=gen, device="cuda")
+        gk = torch.autograd.grad(conv5_mod.conv5(*xs), xs, g)
+        gp = torch.autograd.grad(conv5_mod.conv5_plain(*xp), xp, g)
+        gerr = max(float((a - c).abs().max() / max(1.0, float(c.abs().max())))
+                   for a, c in zip(gk, gp))
+        print(f"conv5 {name} grads: max scaled err {gerr:.3e} (tol 2e-4)")
+        if not gerr <= 2e-4:
+            fail(f"conv5 gradients disagree at {name}")
+        if name == "main":
+            main_err = err
+            timing = {}
+            for key, fn in (("ms", lambda: conv5_mod.conv5_cuda(x, w, b)),
+                            ("plain_ms", lambda: conv5_mod.conv5_plain(x, w, b)),
+                            ("library_ms", lambda: torch.nn.functional.conv3d(x, w, b))):
+                ms, names = device_ms(fn)
+                if not ms > 0:
+                    fail(f"torch.profiler saw no device time for conv5 {key}")
+                timing[key] = ms
+                print(f"conv5 main {key}: {ms:.5f} ms of device time a call "
+                      f"(torch.profiler; {len(set(names))} kernel(s): "
+                      f"{', '.join(sorted(set(names)))[:160]}); {events_ms(fn):.5f} ms "
+                      "a call back to back, host launch included (CUDA events)")
+            bsz, ci, d, h, wd, co = shape
+            n_out = bsz * co * (d - 2) * (h - 2) * (wd - 2)
+            flops = 2.0 * n_out * 27 * ci
+            nbytes = 4.0 * (x.numel() + w.numel() + b.numel() + n_out)
+            timing["bound_ms"] = 1e3 * max(flops / FP32_FLOPS, nbytes / HBM_BYTES_PER_S)
+            timing["bound_by"] = ("operations" if flops / FP32_FLOPS
+                                  >= nbytes / HBM_BYTES_PER_S else "bytes")
+    return main_err, timing
+
+
+# ---------------------------------------------------------------------------
+# main path
+# ---------------------------------------------------------------------------
+
+def synthetic_data(config, n, seed):
+    rng = np.random.default_rng(seed)
+    covs = rng.normal(size=(n, config.num_covariates)).astype(np.float32)
+    covs[:, 0] = (rng.uniform(size=n) > 0.5)          # task on/off
+    covs[:, 7] = (rng.uniform(size=n) > 0.5)          # sex
+    vols = rng.uniform(0, 1, size=(n,) + config.img_shape).astype(np.float32)
+    glm = rng.normal(size=(config.img_dim, config.num_covariates + 1)).astype(np.float32)
+    return vols, covs, glm
+
+
+def drive_main_path(conv5_mod, profile_dir=None):
+    from vaegam_tpu_torch.data import DeviceResidentLoader
+    from vaegam_tpu_torch.models import VAEGAMConfig, forward
+    from vaegam_tpu_torch.train import Trainer
+    from vaegam_tpu_torch.utils.tree import tree_map
+
+    config = VAEGAMConfig()
+    if not config.conv5_kernel:
+        fail("the default config must route conv5 through the kernel")
+    vols, covs, glm = synthetic_data(config, N_VOLS, SEED)
+    trainer = Trainer(config, XU_RANGES, glm, seed=SEED, device="cuda")
+    loader = DeviceResidentLoader.from_arrays(vols, covs, batch_size=BATCH,
+                                              shuffle=True, seed=SEED, device="cuda")
+
+    conv5_mod.conv5.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    epoch_loss = trainer.train_epoch(loader)
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    step_ms, losses = [], []
+    sels = list(loader.iter_index_batches())
+    for i in range(TIMED_STEPS):
+        c, x = loader.gather(sels[i % len(sels)])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _ = trainer.train_step(c, x)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        losses.append(loss)
+    forwards = len(loader) + TIMED_STEPS
+    launches = conv5_mod.conv5.launches
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+
+    losses = torch.stack(losses).cpu().numpy()
+    print(f"epoch 0: loss {epoch_loss:.4f} in {epoch_s:.2f} s; timed-step losses "
+          f"{losses[0]:.1f} .. {losses[-1]:.1f}; skipped "
+          f"{int(trainer.opt_state['total_notfinite'])}; gain-Cholesky fallbacks "
+          f"{trainer.mvn_fallbacks}; peak memory {peak_gib:.2f} GiB")
+    if not (np.isfinite(epoch_loss) and np.isfinite(losses).all()):
+        fail("non-finite loss on the main path")
+    print(f"conv5 launches on the main path: {launches} for {forwards} forwards")
+    if launches != forwards:
+        fail("conv5 did not launch once per forward on the main path")
+
+    if profile_dir:
+        profile_steps(trainer, loader, sels, profile_dir)
+
+    # deterministic B=4 forward: card (kernels) vs CPU (plain versions).
+    # The check widens the inducing grids: at the main path's grid Kuu's
+    # condition number is ~1e8 and fp32 LU solves on two backends
+    # legitimately diverge (tests/test_reference_parity.py:41-48).
+    c, x = loader.gather(sels[0][:4])
+    consts = dict(trainer.consts, xu=torch.stack([
+        torch.linspace(-20.0, 20.0, config.num_inducing_pts, device="cuda")] * 6))
+    with torch.no_grad():
+        card, aux = forward(trainer.params, consts, c, x, config,
+                            deterministic=True, return_maps=True)
+        cpu_p = tree_map(lambda t: t.detach().cpu(), trainer.params)
+        cpu_c = {k: v.cpu() for k, v in consts.items()}
+        ref, ref_aux = forward(cpu_p, cpu_c, c.cpu(), x.cpu(), config,
+                               deterministic=True, return_maps=True)
+    map_err = max(float((m.cpu() - ref_aux["maps"][k]).abs().max())
+                  for k, m in aux["maps"].items())
+    card, ref = float(card), float(ref)
+    print(f"deterministic B=4: tot_loss card {card:.6f} cpu {ref:.6f}; "
+          f"maps max abs diff {map_err:.3e}")
+    if not abs(card - ref) <= 1e-4 * abs(ref):
+        fail("card forward disagrees with the CPU forward")
+    for k, m in aux["maps"].items():
+        if tuple(m.shape) != (4, config.img_dim) or not torch.isfinite(m).all():
+            fail(f"map {k} has shape {tuple(m.shape)} or non-finite values")
+    return launches, statistics.median(step_ms), step_ms, peak_gib
+
+
+def profile_steps(trainer, loader, sels, out_dir):
+    """torch.profiler over 3 train steps; kernel-time table to out_dir."""
+    import os
+    from torch.profiler import ProfilerActivity, profile
+
+    os.makedirs(out_dir, exist_ok=True)
+    batches = [loader.gather(sels[i % len(sels)]) for i in range(3)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for c, x in batches:
+            trainer.train_step(c, x)
+        torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    table = prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=40)
+    kernels = kernel_events(prof)
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    conv5_rows = [f"{e.key}: {e.count} calls, {e.self_device_time_total / 1e3:.5f} ms"
+                  for e in kernels if "conv5_kernel" in e.key]
+    with open(os.path.join(out_dir, "profile_steps.txt"), "w") as f:
+        f.write(f"3 train steps, wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms\n")
+        f.write("conv5 kernel: " + ("; ".join(conv5_rows) or "no row") + "\n")
+        f.write(table)
+    print(f"profile: 3 steps wall {wall_ms:.3f} ms, summed kernel time "
+          f"{busy_ms:.3f} ms; conv5 kernel {'; '.join(conv5_rows) or 'no row'} "
+          f"({out_dir}/profile_steps.txt)")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--profile", default=None,
+                    help="write a torch.profiler breakdown of 3 steps to this directory")
+    args = ap.parse_args(argv)
+
+    if not torch.cuda.is_available():
+        fail("no CUDA device")
+    from vaegam_tpu_torch._device import configure_cuda_backends
+    from vaegam_tpu_torch.ops import build, conv5 as conv5_mod
+
+    # 1. the card
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    configure_cuda_backends()
+    print(f"torch {torch.__version__} cuda {torch.version.cuda}; "
+          f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
+          f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
+          f"cudnn.benchmark={torch.backends.cudnn.benchmark}")
+
+    # 2. build
+    t0 = time.perf_counter()
+    lib = build.build("conv5")
+    print(f"built {lib.name} in {time.perf_counter() - t0:.1f} s")
+    log = lib.with_name(lib.name + ".log")
+    if log.exists():
+        print(log.read_text().strip())
+
+    # 3. kernels vs plain versions
+    err, timing = check_conv5(conv5_mod)
+
+    # 4. main path
+    launches, step_ms, all_ms, peak_gib = drive_main_path(conv5_mod, args.profile)
+
+    # 5. numbers
+    kernel = {
+        "name": "conv5", "route": "cuda",
+        "source": "vaegam_tpu_torch/ops/csrc/conv5.cu",
+        "replaces": "vaegam_tpu/ops/pallas_conv.py:50",
+        "launches": launches, "max_abs_err": err,
+        "ms": timing["ms"], "plain_ms": timing["plain_ms"], "bound_ms": timing["bound_ms"],
+        "bound_by": timing["bound_by"], "library_ms": timing["library_ms"],
+    }
+    print(json.dumps({"kernels": [kernel]}))
+    print(json.dumps({"step_ms_median": step_ms, "vols_per_s": BATCH * 1e3 / step_ms,
+                      "step_ms_min": min(all_ms), "step_ms_max": max(all_ms),
+                      "batch": BATCH, "steps": TIMED_STEPS, "peak_mem_gib": peak_gib}))
+    print(smi)
+    # 6. the last line
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

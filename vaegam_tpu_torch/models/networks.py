@@ -1,0 +1,219 @@
+"""Encoder / decoder networks on parameter dicts, NCDHW layout.
+
+Counterpart of ``vaegam_tpu.models.networks`` (same architecture, same
+shapes).  Weights use the ``nn.Conv3d`` / ``nn.ConvTranspose3d`` /
+``nn.Linear`` layouts: conv (O, I, kD, kH, kW), transposed conv
+(I, O, kD, kH, kW), linear (out, in).  Features flatten channel-major, as
+torch does; ``utils.jax_params`` owns the permutations and flips that carry
+JAX weights (channel-minor flatten, flipped DHWIO transposed-conv kernels)
+into this layout.
+
+The transposed convs are torch's own: convt2 is
+``conv_transpose3d(stride=2, padding=(1,0,1), output_padding=(1,0,1))`` and
+convt4 has a (5,3,3) kernel at stride 2, which is what the JAX
+``lhs_dilation`` convs with padding (k-1-p, k-1-p+op) compute.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..ops.conv5 import conv5
+
+_BN_EPS = 1e-5
+
+REFERENCE_IMG_SHAPE = (41, 49, 35)
+
+
+def encoder_out_shape(img_shape) -> tuple:
+    """Spatial shape after the 5-conv encoder chain (k3: s1,s2,s1,s2,s1)."""
+    out = []
+    for i in img_shape:
+        a = i - 2
+        a = (a - 3) // 2 + 1
+        a = a - 2
+        a = (a - 3) // 2 + 1
+        a = a - 2
+        if a < 1:
+            raise ValueError(f"img_shape axis {i} too small for the conv chain")
+        out.append(a)
+    return tuple(out)
+
+
+def decoder_seed_shape(img_shape) -> tuple:
+    """(seed_shape, crop) for the 5-convt decoder chain.
+
+    Per-axis output of the chain: D,H -> 4s+17, W -> 4s+15.  The seed is the
+    smallest s reaching the target; any surplus is cropped from the tail.
+    (41,49,35) gives the reference's (6,8,5) seed with zero crop.
+    """
+    offsets = (17, 17, 15)
+    seed, crop = [], []
+    for i, c in zip(img_shape, offsets):
+        s = -(-(i - c) // 4)  # ceil
+        if s < 1:
+            raise ValueError(f"img_shape axis {i} too small for the decoder chain")
+        seed.append(s)
+        crop.append(4 * s + c - i)
+    return tuple(seed), tuple(crop)
+
+
+# ---------------------------------------------------------------------------
+# init (torch-default uniform bounds U(+-1/sqrt(fan_in)) for weight and bias)
+# ---------------------------------------------------------------------------
+
+def _uniform(gen, shape, bound, device):
+    u = torch.rand(shape, generator=gen, device=device, dtype=torch.float32)
+    return (2.0 * u - 1.0) * bound
+
+
+def _conv_init(gen, wshape, fan_in, n_out, device):
+    bound = 1.0 / np.sqrt(fan_in)
+    return {"w": _uniform(gen, wshape, bound, device),
+            "b": _uniform(gen, (n_out,), bound, device)}
+
+
+def _linear_init(gen, in_f, out_f, device):
+    bound = 1.0 / np.sqrt(in_f)
+    return {"w": _uniform(gen, (out_f, in_f), bound, device),
+            "b": _uniform(gen, (out_f,), bound, device)}
+
+
+def _bn_init(ch, device):
+    return {"scale": torch.ones(ch, device=device),
+            "shift": torch.zeros(ch, device=device)}
+
+
+def init_encoder(gen, nf, num_latents, img_shape, device):
+    eo = encoder_out_shape(img_shape)
+    flat = 2 * nf * eo[0] * eo[1] * eo[2]
+    c = 2 * nf
+    return {
+        "conv1": _conv_init(gen, (nf, 1, 3, 3, 3), 27, nf, device),
+        "conv2": _conv_init(gen, (nf, nf, 3, 3, 3), nf * 27, nf, device),
+        "conv3": _conv_init(gen, (c, nf, 3, 3, 3), nf * 27, c, device),
+        "conv4": _conv_init(gen, (c, c, 3, 3, 3), c * 27, c, device),
+        "conv5": _conv_init(gen, (c, c, 3, 3, 3), c * 27, c, device),
+        "bn1": _bn_init(1, device),
+        "bn3": _bn_init(nf, device),
+        "bn5": _bn_init(c, device),
+        "fc1": _linear_init(gen, flat, 200, device),
+        "fc2": _linear_init(gen, 200, 100, device),
+        "fc31": _linear_init(gen, 100, 50, device),
+        "fc32": _linear_init(gen, 100, 50, device),
+        "fc33": _linear_init(gen, 100, 50, device),
+        "fc41": _linear_init(gen, 50, num_latents, device),
+        "fc42": _linear_init(gen, 50, num_latents, device),
+        "fc43": _linear_init(gen, 50, num_latents, device),
+    }
+
+
+def init_decoder(gen, nf, z_dim, img_shape, device):
+    seed, _ = decoder_seed_shape(img_shape)
+    c = 2 * nf
+    seed_flat = c * seed[0] * seed[1] * seed[2]
+    # ConvTranspose3d fan_in in torch is out_ch * prod(kernel)
+    return {
+        "fc5": _linear_init(gen, z_dim, 50, device),
+        "fc6": _linear_init(gen, 50, 100, device),
+        "fc7": _linear_init(gen, 100, 200, device),
+        "fc8": _linear_init(gen, 200, seed_flat, device),
+        "convt1": _conv_init(gen, (c, c, 3, 3, 3), c * 27, c, device),
+        "convt2": _conv_init(gen, (c, c, 3, 3, 3), c * 27, c, device),
+        "convt3": _conv_init(gen, (c, nf, 3, 3, 3), nf * 27, nf, device),
+        "convt4": _conv_init(gen, (nf, nf, 5, 3, 3), nf * 45, nf, device),
+        "convt5": _conv_init(gen, (nf, 1, 3, 3, 3), 27, 1, device),
+        "bnt1": _bn_init(c, device),
+        "bnt3": _bn_init(c, device),
+        "bnt5": _bn_init(nf, device),
+    }
+
+
+# ---------------------------------------------------------------------------
+# layer applies
+# ---------------------------------------------------------------------------
+
+def batch_stat_norm(x, p, groups: int = 1):
+    """Normalize with the CURRENT batch statistics over (N, D, H, W).
+
+    BatchNorm3d(track_running_stats=False) semantics: biased variance,
+    eps 1e-5.  groups > 1 computes the statistics per contiguous group of
+    N/groups rows (the fused 9B decode's per-one-hot statistics).
+    Statistics are taken in at least fp32.
+    """
+    n, c = x.shape[:2]
+    xg = x.reshape(groups, n // groups, *x.shape[1:])
+    xg = xg.to(torch.promote_types(x.dtype, torch.float32))
+    axes = (1, 3, 4, 5)
+    mean = xg.mean(dim=axes, keepdim=True)
+    var = (xg - mean).square().mean(dim=axes, keepdim=True)
+    xn = (xg - mean) * torch.rsqrt(var + _BN_EPS)
+    shape = (1, 1, c, 1, 1, 1)
+    out = xn * p["scale"].reshape(shape) + p["shift"].reshape(shape)
+    return out.to(x.dtype).reshape(x.shape)
+
+
+def _linear(x, p):
+    return F.linear(x, p["w"], p["b"])
+
+
+def _conv(x, p, stride):
+    return F.conv3d(x, p["w"], p["b"], stride=stride)
+
+
+def _conv_t(x, p, stride=1, padding=0, output_padding=0):
+    return F.conv_transpose3d(x, p["w"], p["b"], stride=stride,
+                              padding=padding, output_padding=output_padding)
+
+
+def encode(params, x, conv5_kernel: bool = True):
+    """x: (B, D, H, W) -> (mu, u, d), each (B, num_latents).
+
+    conv5_kernel routes conv5 through ``ops.conv5`` (the hand-written CUDA
+    kernel on CUDA tensors, its plain version on CPU tensors) instead of
+    ``F.conv3d``.
+    """
+    h = x[:, None]  # NCDHW with C=1
+    h = F.relu(_conv(batch_stat_norm(h, params["bn1"]), params["conv1"], 1))
+    h = F.relu(_conv(h, params["conv2"], 2))
+    h = F.relu(_conv(batch_stat_norm(h, params["bn3"]), params["conv3"], 1))
+    h = F.relu(_conv(h, params["conv4"], 2))
+    h5 = batch_stat_norm(h, params["bn5"])
+    if conv5_kernel:
+        h = F.relu(conv5(h5, params["conv5"]["w"], params["conv5"]["b"]))
+    else:
+        h = F.relu(_conv(h5, params["conv5"], 1))
+    h = h.reshape(h.shape[0], -1)  # channel-major flatten
+    h = F.relu(_linear(h, params["fc1"]))
+    h = F.relu(_linear(h, params["fc2"]))
+    mu = _linear(F.relu(_linear(h, params["fc31"])), params["fc41"])
+    u = _linear(F.relu(_linear(h, params["fc32"])), params["fc42"])
+    d = torch.exp(_linear(F.relu(_linear(h, params["fc33"])), params["fc43"]))
+    return mu, u, d
+
+
+def decode(params, z, img_shape=REFERENCE_IMG_SHAPE, stat_groups: int = 1):
+    """z: (B*, z_dim) -> sigmoid volume flattened to (B*, prod(img_shape)).
+
+    stat_groups: contiguous batch groups for the batch-stat norms.
+    """
+    sg = stat_groups
+    seed, crop = decoder_seed_shape(img_shape)
+    c = params["convt1"]["w"].shape[0]
+    h = F.relu(_linear(z, params["fc5"]))
+    h = F.relu(_linear(h, params["fc6"]))
+    h = F.relu(_linear(h, params["fc7"]))
+    h = F.relu(_linear(h, params["fc8"]))
+    h = h.reshape(-1, c, *seed)
+    h = F.relu(_conv_t(batch_stat_norm(h, params["bnt1"], sg), params["convt1"]))
+    h = F.relu(_conv_t(h, params["convt2"], 2, (1, 0, 1), (1, 0, 1)))
+    h = F.relu(_conv_t(batch_stat_norm(h, params["bnt3"], sg), params["convt3"]))
+    h = F.relu(_conv_t(h, params["convt4"], 2))
+    h = _conv_t(batch_stat_norm(h, params["bnt5"], sg), params["convt5"])
+    if any(crop):
+        h = h[:, :, : h.shape[2] - crop[0], : h.shape[3] - crop[1],
+              : h.shape[4] - crop[2]]
+    h = torch.sigmoid(h)
+    return h.reshape(h.shape[0], -1)

@@ -1,0 +1,344 @@
+"""VAE-GAM core: parameter bank and composite ELBO forward pass, in torch.
+
+Counterpart of ``vaegam_tpu.models.vaegam`` (reference vae_reg_GP.py:35-413)
+with the same math and the same implementation choices:
+  * the base map and the 8 covariate effect maps decode as ONE (9*B)-row
+    batch, with per-one-hot norm statistics unless ``fused_norm_stats``;
+  * the 6 motion-covariate GP posteriors are one batched evaluation;
+  * the per-covariate B x B gain samples are one batched Cholesky;
+  * the GLM regularizer's sum of distances is taken in closed form.
+Random draws enter as explicit tensors (``noise``) or come from an explicit
+``torch.Generator``; parameters live in one nested dict of tensors.
+
+Reference quirks kept on purpose: the global d-floor, the HRF convolution
+over the BATCH axis, GLM columns 1..8 of the CSV read with its index column.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from .._device import resolve_device
+from ..utils.signals import hrf
+from . import gp as gp_mod
+from .distributions import (
+    lowrank_mvn_kl_to_std_normal,
+    mvn_sample_safe,
+    normal_kl,
+    normal_log_prob,
+)
+from .networks import decode, encode, init_decoder, init_encoder
+
+# output map keys, in reference order
+MAP_KEYS = (
+    "base", "task", "x_mot", "y_mot", "z_mot",
+    "pitch_mot", "roll_mot", "yaw_mot", "sex", "full_rec",
+)
+
+# gp_params covariate key order
+COVARIATE_KEYS = ("task", "x", "y", "z", "xrot", "yrot", "zrot", "sex")
+MOTION_SLICE = slice(1, 7)  # the 6 motion covariates within COVARIATE_KEYS
+
+TR_SECONDS = 1.4
+HRF_WINDOW_SECONDS = 20.0
+
+# fields of the JAX config this slice does not implement yet, with the
+# ROADMAP module item that ports them
+_NOT_YET = {
+    "conv_dtype": "bf16 recipe, ROADMAP module item 3",
+    "enc_conv_dtype": "bf16 recipe, ROADMAP module item 3",
+    "dec_conv_dtype": "bf16 recipe, ROADMAP module item 3",
+    "dec_fp32_final": "bf16 recipe, ROADMAP module item 3",
+    "conv_pack": "lane-packed convs, ROADMAP module item 11",
+    "qu_s_cholesky": "opt-in paths of ROADMAP module item 1",
+    "x64_epsilon": "opt-in paths of ROADMAP module item 1",
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class VAEGAMConfig:
+    """Static model configuration; fields and defaults as the JAX package's.
+
+    ``conv5_kernel`` (JAX: ``pallas_conv5``) routes the encoder's conv5
+    through the hand-written CUDA kernel; it defaults to on, since the JAX
+    default of off was a TPU measurement.
+    """
+
+    nf: int = 8
+    num_covariates: int = 8
+    num_latents: int = 32
+    num_inducing_pts: int = 6
+    gp_kl_scale: float = 10.0
+    glm_reg_scale: float = 1.0
+    neural_covariates: bool = True
+    max_ls: float = 3.0
+    img_shape: Tuple[int, int, int] = (41, 49, 35)
+    dtype: Any = torch.float32
+    conv_dtype: Any = None
+    conv_pack: Any = None
+    enc_conv_dtype: Any = "inherit"
+    dec_conv_dtype: Any = "inherit"
+    dec_fp32_final: bool = False
+    conv5_kernel: bool = True
+    qu_s_cholesky: bool = False
+    x64_epsilon: bool = False
+    fused_norm_stats: bool = False
+
+    def __post_init__(self):
+        if self.dtype != torch.float32:
+            raise NotImplementedError("only float32 models are ported")
+        defaults = {f.name: f.default for f in dataclasses.fields(self)}
+        for name, where in _NOT_YET.items():
+            if getattr(self, name) != defaults[name]:
+                raise NotImplementedError(f"{name} is not ported yet ({where})")
+
+    @property
+    def z_dim(self) -> int:
+        return self.num_latents + self.num_covariates + 1
+
+    @property
+    def img_dim(self) -> int:
+        return int(np.prod(self.img_shape))
+
+    @property
+    def num_neural(self) -> int:
+        """How many leading covariates get HRF convolution (task, by default)."""
+        return max(0, self.num_covariates - 7)
+
+
+def hrf_kernel(device=None) -> torch.Tensor:
+    """HRF sampled at TR resolution over a 20 s window (15 taps)."""
+    return torch.tensor(hrf(np.arange(0.0, HRF_WINDOW_SECONDS, TR_SECONDS)),
+                        dtype=torch.float32, device=device)
+
+
+def init_model(
+    config: VAEGAMConfig,
+    xu_ranges,
+    glm_maps: Optional[np.ndarray] = None,
+    generator: Optional[torch.Generator] = None,
+    seed: int = 0,
+    device=None,
+) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """Build (params, consts): nested dicts of tensors on `device`.
+
+    Args:
+      xu_ranges: 6 [lo, hi] ranges for the inducing-point grids.
+      glm_maps:  optional (img_dim, num_covariates+1) array, the reference's
+                 CSV read with its index column; None disables the GLM term.
+      generator: a torch.Generator on `device`; default one seeded by `seed`.
+      device:    the CUDA device unless given (``"cpu"`` for the CPU).
+    """
+    device = resolve_device(device)
+    gen = generator
+    if gen is None:
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
+    n_cov, p, n_mot = config.num_covariates, config.num_inducing_pts, 6
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+
+    enc = init_encoder(gen, config.nf, config.num_latents, config.img_shape, device)
+    dec = init_decoder(gen, config.nf, config.z_dim, config.img_shape, device)
+    gp_bank = {
+        # linear gain for ALL covariates: sa ~ N(1,1), logstd ~ N(0,1)
+        "sa": 1.0 + randn(n_cov),
+        "logstd": randn(n_cov),
+        # sparse-GP bank for the 6 motion covariates
+        "qu_m": randn(n_mot, p),
+        "logkvar": torch.zeros(n_mot, device=device),
+        "log_ls": torch.zeros(n_mot, device=device),
+        "qu_S": (2.0 * torch.eye(p, device=device)).repeat(n_mot, 1, 1),
+    }
+    params = {
+        "enc": enc,
+        "dec": dec,
+        "epsilon": torch.full(config.img_shape, -math.log(10.0), device=device),
+        "gp": gp_bank,
+    }
+    xu = torch.stack([
+        torch.linspace(float(lo), float(hi), p, device=device)
+        for lo, hi in xu_ranges
+    ])
+    consts = {
+        "xu": xu,
+        "hrf": hrf_kernel(device),
+        "glm_maps": (None if glm_maps is None else
+                     torch.as_tensor(np.asarray(glm_maps, np.float32), device=device)),
+    }
+    return params, consts
+
+
+def gp_transforms(gp_params, config: VAEGAMConfig):
+    """kvar = exp(logkvar)+0.1;  ls = max_ls * sigmoid(exp(log_ls)+0.5)."""
+    kvar = torch.exp(gp_params["logkvar"]) + 0.1
+    ls = config.max_ls * torch.sigmoid(torch.exp(gp_params["log_ls"]) + 0.5)
+    return kvar, ls
+
+
+def resolve_qu_S(gp_params) -> torch.Tensor:
+    """The GP posterior covariance stack (6, P, P), raw-matrix parameterization."""
+    if "qu_S" not in gp_params:
+        raise NotImplementedError(
+            f"qu_S_raw is not ported yet ({_NOT_YET['qu_s_cholesky']})")
+    return gp_params["qu_S"]
+
+
+def hrf_convolve(gains: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
+    """Causal HRF convolution of each row of gains (n, B) over the batch axis.
+
+    The first B entries of the full 1-D convolution (the JAX code's
+    ``jnp.convolve(g, h, "full")[:B]``): a cross-correlation with the
+    flipped kernel after K-1 zeros of left padding.
+    """
+    k = kernel.shape[0]
+    padded = F.pad(gains[:, None, :], (k - 1, 0))
+    return F.conv1d(padded, kernel.flip(0)[None, None, :])[:, 0, :]
+
+
+def draw_noise(generator: torch.Generator, batch: int, config: VAEGAMConfig,
+               device) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(eps_w (B,1), eps_d (B,L), eps_beta (C,B)) standard normals."""
+    def randn(*shape):
+        return torch.randn(shape, generator=generator, device=device)
+
+    return (randn(batch, 1), randn(batch, config.num_latents),
+            randn(config.num_covariates, batch))
+
+
+def forward(
+    params: Dict[str, Any],
+    consts: Dict[str, Any],
+    covariates: torch.Tensor,  # (B, num_covariates)
+    x: torch.Tensor,           # (B, *img_shape)
+    config: VAEGAMConfig,
+    noise=None,
+    generator: Optional[torch.Generator] = None,
+    return_maps: bool = False,
+    deterministic: bool = False,
+):
+    """Composite VAE-GAM objective (reference vae_reg_GP.py:307-413).
+
+    Returns (tot_loss, aux), aux as in the JAX package: scalars elbo, gp_kl,
+    glm_reg and diagnostics, plus 'z' and 'maps' (dict over MAP_KEYS of
+    (B, img_dim)) when return_maps.
+
+    The draws come from ``noise=(eps_w, eps_d, eps_beta)`` when given, else
+    from ``generator``.  deterministic=True uses the means (z = mu,
+    gains = beta_mean) and draws nothing.
+    """
+    b = x.shape[0]
+    n_cov = config.num_covariates
+    if not deterministic and noise is None:
+        if generator is None:
+            raise ValueError("forward needs noise tensors or a generator")
+        noise = draw_noise(generator, b, config, x.device)
+
+    # --- encoder & latent sample ------------------------------------------
+    mu, u, d = encode(params["enc"], x, config.conv5_kernel)
+    # global d-floor: if ANY element is tiny, shift the WHOLE tensor
+    d = torch.where((d < 1e-6).any(), d + 1e-6, d)
+    if deterministic:
+        z = mu
+    else:
+        eps_w, eps_d, eps_beta = noise
+        z = mu + u * eps_w + torch.sqrt(d) * eps_d
+
+    # --- ONE batched decode for base + all covariate effect maps ----------
+    onehots = torch.eye(n_cov + 1, dtype=z.dtype, device=z.device)
+    zb = z[None].expand(n_cov + 1, b, z.shape[-1])
+    ohb = onehots[:, None, :].expand(n_cov + 1, b, n_cov + 1)
+    zcat = torch.cat([zb, ohb], dim=-1).reshape((n_cov + 1) * b, config.z_dim)
+    decoded = decode(
+        params["dec"], zcat, config.img_shape,
+        stat_groups=1 if config.fused_norm_stats else n_cov + 1,
+    ).reshape(n_cov + 1, b, config.img_dim)
+    base, diffs = decoded[0], decoded[1:]                         # (B,D), (C,B,D)
+
+    # --- gain (beta) distributions per covariate ---------------------------
+    gp_p = params["gp"]
+    xq = covariates.T                                             # (C, B)
+    sa, std = gp_p["sa"], torch.exp(gp_p["logstd"])
+    lin_kl = torch.sum(normal_kl(sa, std, 1.0, 0.5))
+    beta_mean = sa[:, None] * xq                                  # (C, B)
+    eye_b = torch.eye(b, dtype=xq.dtype, device=xq.device)
+    beta_cov = eye_b[None] * (std[:, None] ** 2 * xq ** 2)[:, None, :]  # (C,B,B)
+
+    # sparse GP for the 6 motion covariates, one batched evaluation
+    kvar, ls = gp_transforms(gp_p, config)
+    qu_S = resolve_qu_S(gp_p)
+    f_bar, sigma = gp_mod.evaluate_posterior(
+        consts["xu"], kvar, ls, gp_p["qu_m"], qu_S, xq[MOTION_SLICE]
+    )
+    lo, hi = MOTION_SLICE.start, MOTION_SLICE.stop
+    beta_mean = torch.cat([beta_mean[:lo], beta_mean[lo:hi] + f_bar,
+                           beta_mean[hi:]])
+    beta_cov = torch.cat([beta_cov[:lo], beta_cov[lo:hi] + sigma, beta_cov[hi:]])
+    gp_kls = gp_mod.gp_kl(gp_p["qu_m"], qu_S)                     # (6,)
+    gp_kl_loss = lin_kl + torch.sum(gp_kls)
+
+    # batch-coupled gain sample: one batched Cholesky over (C, B, B)
+    if deterministic:
+        gains = beta_mean
+        mvn_fallbacks = torch.zeros((), dtype=torch.int32, device=x.device)
+    else:
+        gains, mvn_fallbacks = mvn_sample_safe(
+            eps_beta, beta_mean, beta_cov + 1e-5 * eye_b[None]
+        )
+
+    # HRF-convolve neural covariates over the batch axis (reference quirk)
+    if config.neural_covariates and config.num_neural > 0:
+        nn_ = config.num_neural
+        gains = torch.cat([hrf_convolve(gains[:nn_], consts["hrf"]), gains[nn_:]])
+
+    # --- compose reconstruction -------------------------------------------
+    x_rec = base + torch.einsum("cb,cbd->bd", gains, diffs)
+
+    # --- GLM regularizer (closed form of sum(cdist(cons, tile(glm, B)))) ---
+    if consts["glm_maps"] is not None:
+        glm = consts["glm_maps"][:, 1: n_cov + 1].T               # (C, D)
+        d2 = torch.sum(diffs * diffs, dim=-1)                     # (C, B)
+        dg = torch.einsum("cbd,cd->cb", diffs, glm)               # (C, B)
+        g2 = torch.sum(glm * glm, dim=-1)                         # (C,)
+        sq = gains ** 2 * d2 - 2.0 * gains * dg + g2[:, None]
+        glm_reg = b * torch.sum(torch.sqrt(torch.clamp(sq, min=0.0)))
+    else:
+        glm_reg = torch.zeros((), dtype=x.dtype, device=x.device)
+
+    # --- ELBO ----------------------------------------------------------------
+    kl_z = lowrank_mvn_kl_to_std_normal(mu, u, d)                 # (B,)
+    obs_scale = torch.exp(-params["epsilon"]).reshape(-1)         # (D,)
+    log_prob = torch.sum(
+        normal_log_prob(x.reshape(b, -1), x_rec, obs_scale[None, :]), dim=-1
+    )
+    elbo = torch.mean(-kl_z + log_prob)
+    tot_loss = (
+        -elbo + config.gp_kl_scale * gp_kl_loss + config.glm_reg_scale * glm_reg
+    )
+
+    aux: Dict[str, Any] = {
+        "elbo": elbo,
+        "gp_kl": gp_kl_loss,
+        "glm_reg": glm_reg,
+        "beta_mean": beta_mean,
+        "beta_cov_diag": torch.diagonal(beta_cov, dim1=-2, dim2=-1),
+        "kl_z_mean": torch.mean(kl_z),
+        "log_prob_mean": torch.mean(log_prob),
+        "gains_absmax": torch.max(torch.abs(gains)),
+        "mvn_fallbacks": mvn_fallbacks,
+    }
+    if return_maps:
+        aux["z"] = z
+        cons = gains[:, :, None] * diffs                          # (C, B, D)
+        maps = {"base": base, "full_rec": x_rec}
+        for j, mkey in enumerate(MAP_KEYS[1:-1]):                 # task..sex
+            maps[mkey] = cons[j]
+        aux["maps"] = maps
+    return tot_loss, aux

@@ -1,0 +1,6 @@
+"""Hand-written CUDA kernels of the port and their plain PyTorch versions.
+
+conv5 (``csrc/conv5.cu``) replaces the one Pallas kernel of the JAX package,
+``vaegam_tpu/ops/pallas_conv.py::_conv5_kernel``.  Kernels build at first
+use (``ops.build``); importing this package needs neither nvcc nor a card.
+"""

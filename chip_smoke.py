@@ -7,8 +7,12 @@
 Phases (any failure exits non-zero; nothing is caught to exit 0):
   1. the card: name and power limit (nvidia-smi), TF32 off;
   2. build every CUDA kernel of the main path from this checkout's sources;
+  2b. the tensor-core instructions (HMMA) in the built conv5 library;
   3. each kernel against its plain PyTorch version on the card, forward and
-     backward, at the main path's shapes and a few others;
+     backward, at the main path's shapes and a few others (both of conv5's
+     staging paths); device time of conv5 and F.conv3d at the main and MNI
+     shapes, with the CUDA-event time of 200 back-to-back calls and the
+     host time to enqueue one call beside it;
   4. the main path at the reference's full width: a Trainer at the default
      config (nf=8, 32 latents, 41x49x35, fp32, per-one-hot decoder norm
      statistics, GLM maps on, conv5 kernel on) trains one epoch over 128
@@ -26,6 +30,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -37,8 +42,9 @@ import torch
 SEED = 0
 N_VOLS, BATCH, TIMED_STEPS = 128, 32, 20
 XU_RANGES = [[-2.0, 2.0]] * 6          # as bench.py
-# H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, HBM3
-FP32_FLOPS, HBM_BYTES_PER_S = 67e12, 3.35e12
+# H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, dense
+# TF32 in them, HBM3
+FP32_FLOPS, TF32_FLOPS, HBM_BYTES_PER_S = 67e12, 495e12, 3.35e12
 
 
 def fail(msg: str):
@@ -60,6 +66,20 @@ def events_ms(fn, iters: int = 200, warmup: int = 10) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def host_ms(fn, iters: int = 200, warmup: int = 10) -> float:
+    """Mean host time to enqueue one fn() (checks, allocation, launch), over
+    `iters` back-to-back calls with no synchronisation between them."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return 1e3 * (t1 - t0) / iters
 
 
 def kernel_events(prof):
@@ -95,7 +115,9 @@ CONV5_SHAPES = {  # (B, Ci, D, H, W, Co)
     "odd-batch": (3, 16, 8, 10, 6, 16),
     "mni": (4, 16, 20, 25, 20, 16),      # 91x109x91 grid
     "thin": (4, 4, 3, 4, 3, 4),          # nf=2 on 21x25x21
+    "hw30": (4, 4, 5, 6, 5, 4),          # H*W % 4 != 0: the 4-byte staging path
 }
+TIMED_CONV5_SHAPES = ("main", "mni")
 
 
 def conv5_inputs(shape, gen):
@@ -107,11 +129,24 @@ def conv5_inputs(shape, gen):
     return x, wt, b
 
 
+def conv5_bounds(shape):
+    """(bound_ms, bound_by, bound_tc_ms): the fp32-FMA floor, and the floor
+    of the same work as split TF32 (3 products) on the tensor cores; each
+    against the bytes floor (each input read once, the output written once)."""
+    bsz, ci, d, h, wd, co = shape
+    n_out = bsz * co * (d - 2) * (h - 2) * (wd - 2)
+    flops = 2.0 * n_out * 27 * ci
+    bytes_s = 4.0 * (bsz * ci * d * h * wd + co * ci * 27 + co + n_out) / HBM_BYTES_PER_S
+    fma_s, tc_s = flops / FP32_FLOPS, 3 * flops / TF32_FLOPS
+    return (1e3 * max(fma_s, bytes_s), "operations" if fma_s >= bytes_s else "bytes",
+            1e3 * max(tc_s, bytes_s))
+
+
 def check_conv5(conv5_mod):
     """Kernel vs plain on the card; returns (max_abs_err at the main shape, timings)."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
-    main_err = None
+    main_err, timing = None, {}
     for name, shape in CONV5_SHAPES.items():
         x, w, b = conv5_inputs(shape, gen)
         got = conv5_mod.conv5_cuda(x, w, b)
@@ -120,7 +155,9 @@ def check_conv5(conv5_mod):
         err = float((got - want).abs().max())
         # fp32 sums of 27*Ci products in another order: 2e-5 at unit scale
         tol = 2e-5 * max(1.0, float(want.abs().max()))
-        print(f"conv5 {name} {tuple(x.shape)} -> {tuple(got.shape)}: "
+        path = "16-byte" if conv5_mod.vector_staging(x) else "4-byte"
+        print(f"conv5 {name} {tuple(x.shape)} -> {tuple(got.shape)} ({path} staging, "
+              f"{conv5_mod.plan(*x.shape[:2], w.shape[0], *x.shape[2:]).blocks} blocks): "
               f"max_abs_err {err:.3e} (tol {tol:.1e})")
         if not err <= tol:
             fail(f"conv5 kernel disagrees with its plain version at {name}")
@@ -137,26 +174,48 @@ def check_conv5(conv5_mod):
             fail(f"conv5 gradients disagree at {name}")
         if name == "main":
             main_err = err
-            timing = {}
-            for key, fn in (("ms", lambda: conv5_mod.conv5_cuda(x, w, b)),
-                            ("plain_ms", lambda: conv5_mod.conv5_plain(x, w, b)),
-                            ("library_ms", lambda: torch.nn.functional.conv3d(x, w, b))):
-                ms, names = device_ms(fn)
-                if not ms > 0:
-                    fail(f"torch.profiler saw no device time for conv5 {key}")
-                timing[key] = ms
-                print(f"conv5 main {key}: {ms:.5f} ms of device time a call "
-                      f"(torch.profiler; {len(set(names))} kernel(s): "
-                      f"{', '.join(sorted(set(names)))[:160]}); {events_ms(fn):.5f} ms "
-                      "a call back to back, host launch included (CUDA events)")
-            bsz, ci, d, h, wd, co = shape
-            n_out = bsz * co * (d - 2) * (h - 2) * (wd - 2)
-            flops = 2.0 * n_out * 27 * ci
-            nbytes = 4.0 * (x.numel() + w.numel() + b.numel() + n_out)
-            timing["bound_ms"] = 1e3 * max(flops / FP32_FLOPS, nbytes / HBM_BYTES_PER_S)
-            timing["bound_by"] = ("operations" if flops / FP32_FLOPS
-                                  >= nbytes / HBM_BYTES_PER_S else "bytes")
+        if name not in TIMED_CONV5_SHAPES:
+            continue
+        prefix = "" if name == "main" else f"{name}_"
+        fns = {"ms": lambda: conv5_mod.conv5_cuda(x, w, b),
+               "library_ms": lambda: torch.nn.functional.conv3d(x, w, b)}
+        if name == "main":
+            fns["plain_ms"] = lambda: conv5_mod.conv5_plain(x, w, b)
+        for key, fn in fns.items():
+            ms, names = device_ms(fn)
+            if not ms > 0:
+                fail(f"torch.profiler saw no device time for conv5 {name} {key}")
+            ev, host = events_ms(fn), host_ms(fn)
+            timing[prefix + key] = ms
+            timing[prefix + key.replace("ms", "events_ms")] = ev
+            timing[prefix + key.replace("ms", "host_ms")] = host
+            print(f"conv5 {name} {key}: {ms:.5f} ms of device time a call "
+                  f"(torch.profiler; {len(set(names))} kernel(s): "
+                  f"{', '.join(sorted(set(names)))[:160]}); {ev:.5f} ms "
+                  "a call over 200 back-to-back calls, host launch included (CUDA events); "
+                  f"{host:.5f} ms of host time to enqueue a call")
+        bound, by, bound_tc = conv5_bounds(shape)
+        timing[prefix + "bound_ms"], timing[prefix + "bound_tc_ms"] = bound, bound_tc
+        if name == "main":
+            timing["bound_by"] = by
+        print(f"conv5 {name} bound {bound:.5f} ms ({by}, fp32 FMA), "
+              f"{bound_tc:.5f} ms as split TF32 on the tensor cores")
     return main_err, timing
+
+
+def count_hmma(lib) -> int:
+    """HMMA (tensor-core) instructions in a built library, from the
+    toolkit's cuobjdump; fails if there is none."""
+    from vaegam_tpu_torch.ops.build import find_nvcc
+
+    cuobjdump = os.path.join(os.path.dirname(find_nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "--dump-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    n = sum("HMMA" in line for line in sass.splitlines())
+    print(f"{lib.name}: {n} HMMA instructions in its SASS (cuobjdump --dump-sass)")
+    if n == 0:
+        fail(f"{lib.name} has no tensor-core instruction")
+    return n
 
 
 # ---------------------------------------------------------------------------
@@ -250,7 +309,6 @@ def drive_main_path(conv5_mod, profile_dir=None):
 
 def profile_steps(trainer, loader, sels, out_dir):
     """torch.profiler over 3 train steps; kernel-time table to out_dir."""
-    import os
     from torch.profiler import ProfilerActivity, profile
 
     os.makedirs(out_dir, exist_ok=True)
@@ -304,6 +362,7 @@ def main(argv=None) -> int:
     log = lib.with_name(lib.name + ".log")
     if log.exists():
         print(log.read_text().strip())
+    count_hmma(lib)
 
     # 3. kernels vs plain versions
     err, timing = check_conv5(conv5_mod)
@@ -319,6 +378,11 @@ def main(argv=None) -> int:
         "launches": launches, "max_abs_err": err,
         "ms": timing["ms"], "plain_ms": timing["plain_ms"], "bound_ms": timing["bound_ms"],
         "bound_by": timing["bound_by"], "library_ms": timing["library_ms"],
+        "bound_tc_ms": timing["bound_tc_ms"], "events_ms": timing["events_ms"],
+        "library_events_ms": timing["library_events_ms"], "host_ms": timing["host_ms"],
+        "library_host_ms": timing["library_host_ms"],
+        "mni_ms": timing["mni_ms"], "mni_library_ms": timing["mni_library_ms"],
+        "mni_bound_ms": timing["mni_bound_ms"], "mni_bound_tc_ms": timing["mni_bound_tc_ms"],
     }
     print(json.dumps({"kernels": [kernel]}))
     print(json.dumps({"step_ms_median": step_ms, "vols_per_s": BATCH * 1e3 / step_ms,

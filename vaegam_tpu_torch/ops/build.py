@@ -35,25 +35,29 @@ def find_nvcc() -> str:
     return found
 
 
-def library_path(name: str) -> Path:
+def library_path(name: str, defines: tuple[str, ...] = ()) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    flags = NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+    key = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{key}.so"
 
 
-def build(name: str) -> Path:
+def build(name: str, defines: tuple[str, ...] = ()) -> Path:
     """Compile ``csrc/<name>.cu`` unless a library of the same hash exists.
 
-    The compiler's ``-Xptxas -v`` report (registers, shared memory, spills)
-    is kept beside the library as ``<lib>.log``.
+    ``defines`` are preprocessor macros for an instrumented build (for
+    example ``CONV5_PHASE_CLOCKS``); they are part of the hash.  The
+    compiler's ``-Xptxas -v`` report (registers, shared memory, spills) is
+    kept beside the library as ``<lib>.log``.
     """
-    out = library_path(name)
+    out = library_path(name, defines)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+    cmd = [find_nvcc(), *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-o", tmp,
+           str(CSRC / f"{name}.cu")]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         os.unlink(tmp)
@@ -63,5 +67,5 @@ def build(name: str) -> Path:
     return out
 
 
-def load(name: str) -> ctypes.CDLL:
-    return ctypes.CDLL(str(build(name)))
+def load(name: str, defines: tuple[str, ...] = ()) -> ctypes.CDLL:
+    return ctypes.CDLL(str(build(name, defines)))

@@ -16,29 +16,104 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 from torch.nn.grad import conv3d_input, conv3d_weight
 
 # Largest dynamic shared memory a Hopper block may opt into (227 KB).
 MAX_SMEM_BYTES = 232448
+WARPS = 8                 # csrc/conv5.cu kWarps
+SLICE_STEPS = 7           # csrc/conv5.cu kSliceSteps: k8 steps a warp holds
+MAX_TILES = 4             # csrc/conv5.cu kMaxTiles: m16 tiles a block at most
+
+
+class Conv5Plan(NamedTuple):
+    """How csrc/conv5.cu tiles one input shape: the kernel reads these ints
+    in this order (its ``struct Plan``).  Offsets and strides are in 4-byte
+    words of dynamic shared memory."""
+
+    ci: int
+    co: int
+    d: int
+    h: int
+    w: int
+    rows: int        # output (y, x) rows a block covers
+    nchunks: int     # blocks per output z plane
+    mt: int          # m16 tiles a block
+    nslices: int     # K slices of SLICE_STEPS k8 steps (27*Ci padded)
+    ngroups: int     # n16 groups: Co padded to 16
+    ds: int          # words per (ci, dz) input run
+    cs: int          # words per channel
+    rstride: int     # words per partial-sum row
+    red_off: int
+    koff_off: int
+    rowoff_off: int
+    bias_off: int
+    smem: int        # bytes of dynamic shared memory
+    blocks: int
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=64)
+def plan(bsz: int, ci: int, co: int, d: int, h: int, w: int) -> Conv5Plan:
+    """Tile an input (bsz, ci, d, h, w) for the kernel.
+
+    A block covers (b, z_out, a chunk of the output plane's rows in (y, x)
+    order): at most MAX_TILES m16 tiles, with the chunks of a plane
+    balanced.  Its warps split K, each holding SLICE_STEPS k8 steps of the
+    weight in registers.  Shared memory holds the input lines the chunk
+    reads for each (ci, dz) (plus one zeroed run for K padding), the
+    warps' partial sums for one n16 group, the address tables and the bias."""
+    do, ho, wo = d - 2, h - 2, w - 2
+    nchunks = _cdiv(ho * wo, 16 * MAX_TILES)
+    rows = _cdiv(ho * wo, nchunks)
+    mt = _cdiv(rows, 16)
+    lines = (rows + wo - 2) // wo + 1    # y-lines `rows` rows span at most
+    nslices = _cdiv(_cdiv(27 * ci, 8), SLICE_STEPS)
+    ngroups = _cdiv(co, 16)
+    ds = 4 * _cdiv((lines + 2) * w + 6, 4)   # run, widened to 16-byte bounds
+    # Keep a k8 step that crosses from channel c's last taps to c+1's first
+    # ones on other banks: (cs - offset of tap 24) = 16 (mod 32), to 4 words.
+    cs = 3 * ds + (((16 + 2 * ds + 2 * w) & ~3) - 3 * ds) % 32
+    rstride = 16 * mt + 4
+    red_off = ci * cs + ds
+    koff_off = red_off + WARPS * 16 * rstride
+    rowoff_off = koff_off + nslices * SLICE_STEPS * 8   # koff is read as int2
+    bias_off = rowoff_off + 16 * mt
+    return Conv5Plan(ci, co, d, h, w, rows, nchunks, mt, nslices, ngroups, ds, cs,
+                     rstride, red_off, koff_off, rowoff_off, bias_off,
+                     4 * (bias_off + co), bsz * do * nchunks)
+
+
+@functools.lru_cache(maxsize=64)
+def _plan_words(shape) -> ctypes.Array:
+    return (ctypes.c_int * len(Conv5Plan._fields))(*plan(*shape))
 
 
 @functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
+def _library(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
+    """The built kernel; ``defines`` selects an instrumented build
+    (``ops/conv5_phases.py``)."""
     from .build import load
 
-    lib = load("conv5")
-    lib.conv5_fwd.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
-        ctypes.c_void_p]
+    lib = load("conv5", defines)
+    lib.conv5_plan_ints.argtypes = []
+    lib.conv5_plan_ints.restype = ctypes.c_int
+    if lib.conv5_plan_ints() != len(Conv5Plan._fields):
+        raise RuntimeError("conv5.cu's Plan does not match ops/conv5.py's Conv5Plan")
+    lib.conv5_fwd.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p]
     lib.conv5_fwd.restype = ctypes.c_int
     return lib
 
 
-def smem_bytes(ci: int, co: int, h: int, w: int) -> int:
-    """Dynamic shared memory one block of the kernel needs (its 3 input
-    z-slabs plus the whole weight)."""
-    return 4 * (3 * ci * h * w + 27 * ci * co)
+def vector_staging(x) -> bool:
+    """Whether the kernel stages x with 16-byte copies: every input z-slice
+    starts on a 16-byte boundary."""
+    return (x.shape[3] * x.shape[4]) % 4 == 0 and x.data_ptr() % 16 == 0
 
 
 def check_kernel_inputs(x, w, b) -> None:
@@ -52,33 +127,45 @@ def check_kernel_inputs(x, w, b) -> None:
         raise ValueError(f"conv5: x must be (B, Ci, D, H, W), got {tuple(x.shape)}")
     bsz, ci, d, h, wd = x.shape
     co = w.shape[0]
-    if tuple(w.shape) != (co, ci, 3, 3, 3) or tuple(b.shape) != (co,):
+    if w.shape != (co, ci, 3, 3, 3) or b.shape != (co,):
         raise ValueError(f"conv5: w {tuple(w.shape)} / b {tuple(b.shape)} do "
                          f"not fit x with {ci} channels")
     if min(d, h, wd) < 3 or bsz < 1:
         raise ValueError(f"conv5: x {tuple(x.shape)} too small for a 3x3x3 VALID conv")
-    if smem_bytes(ci, co, h, wd) > MAX_SMEM_BYTES:
+    if plan(bsz, ci, co, d, h, wd).smem > MAX_SMEM_BYTES:
         raise ValueError(f"conv5: x {tuple(x.shape)} needs more shared memory "
                          "than one block has")
-    for name, t in (("x", x), ("w", w), ("b", b)):
-        if not t.is_cuda or t.device != x.device:
-            raise ValueError(f"conv5: {name} must be a CUDA tensor on x's device")
+    dev = x.device
+    if not x.is_cuda or w.device != dev or b.device != dev:
+        raise ValueError("conv5: x, w and b must be CUDA tensors on x's device")
+
+
+def _launch(lib, x, w, b):
+    """Launch `lib`'s kernel on x's device and its current stream; returns y.
+    The caller has checked the inputs.  The device context is entered only
+    when x is not on the current device, and the stream is read as a raw
+    pointer (no Stream object), to keep a call's host cost near the
+    kernel's few microseconds."""
+    bsz, ci, d, h, wd = x.shape
+    co = w.shape[0]
+    y = x.new_empty((bsz, co, d - 2, h - 2, wd - 2))
+    args = (x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
+            ctypes.addressof(_plan_words((bsz, ci, co, d, h, wd))), vector_staging(x))
+    dev = x.device.index
+    if dev == torch.cuda.current_device():
+        err = lib.conv5_fwd(*args, torch._C._cuda_getCurrentRawStream(dev))
+    else:
+        with torch.cuda.device(dev):
+            err = lib.conv5_fwd(*args, torch._C._cuda_getCurrentRawStream(dev))
+    if err != 0:
+        raise RuntimeError(f"conv5 kernel launch failed with CUDA error {err}")
+    return y
 
 
 def conv5_cuda(x, w, b):
     """Launch the kernel on the current stream; returns y (B, Co, D-2, H-2, W-2)."""
     check_kernel_inputs(x, w, b)
-    lib = _library()
-    bsz, ci, d, h, wd = x.shape
-    co = w.shape[0]
-    y = torch.empty((bsz, co, d - 2, h - 2, wd - 2), device=x.device,
-                    dtype=torch.float32)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.conv5_fwd(x.data_ptr(), w.data_ptr(), b.data_ptr(),
-                            y.data_ptr(), bsz, ci, co, d, h, wd, stream)
-    if err != 0:
-        raise RuntimeError(f"conv5 kernel launch failed with CUDA error {err}")
+    y = _launch(_library(), x, w, b)
     conv5.launches += 1
     return y
 

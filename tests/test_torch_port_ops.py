@@ -307,7 +307,7 @@ def _port_sources():
 
 
 def test_port_sources_import_neither_jax_nor_the_jax_package():
-    pat = re.compile(r"^\s*(import|from)\s+(jax|vaegam_tpu)(\.|\s|$)", re.M)
+    pat = re.compile(r"^\s*(import|from)\s+(jax|optax|vaegam_tpu)(\.|\s|$)", re.M)
     offenders = [str(p.relative_to(ROOT)) for p in _port_sources()
                  if pat.search(p.read_text())]
     assert offenders == []
@@ -315,10 +315,14 @@ def test_port_sources_import_neither_jax_nor_the_jax_package():
 
 
 def test_port_imports_with_jax_blocked():
-    code = ("import sys; sys.modules['jax'] = None; sys.modules['vaegam_tpu'] = None\n"
+    code = ("import sys\n"
+            "sys.modules['jax'] = sys.modules['optax'] = sys.modules['vaegam_tpu'] = None\n"
             "import vaegam_tpu_torch, vaegam_tpu_torch.ops.conv5, "
             "vaegam_tpu_torch.ops.build, vaegam_tpu_torch.data, "
-            "vaegam_tpu_torch.utils.jax_params\n"
+            "vaegam_tpu_torch.data.dataset, vaegam_tpu_torch.data.device_cache, "
+            "vaegam_tpu_torch.utils.jax_params, vaegam_tpu_torch.utils.nifti, "
+            "vaegam_tpu_torch.utils.nifti_native, vaegam_tpu_torch.utils.stats, "
+            "vaegam_tpu_torch.train.checkpoint, vaegam_tpu_torch.cli.train\n"
             "assert 'triton' not in sys.modules\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,

@@ -58,7 +58,7 @@ def _assert_tree_close(port_tree, jax_tree, rtol, atol_frac, what):
 @pytest.mark.parametrize("clip", [0.0, 0.5], ids=["adam", "clip"])
 def test_optimizer_matches_optax(clip):
     """Six updates on a small tree, one with a NaN gradient: params, both
-    moments, the step count and total_notfinite track optax.  fp32
+    moments, the step count and apply_if_finite's three counters track optax.  fp32
     elementwise arithmetic in the same order: rtol 1e-6."""
     rng = np.random.default_rng(0)
     shapes = {"a": (3, 4), "b": {"c": (5,), "d": (2, 2, 2)}}
@@ -84,7 +84,8 @@ def test_optimizer_matches_optax(clip):
         _assert_tree_close(trainer.opt_state["mu"], to_np(adam.mu), 1e-6, 1e-7, "mu")
         _assert_tree_close(trainer.opt_state["nu"], to_np(adam.nu), 1e-6, 1e-7, "nu")
         assert int(trainer.opt_state["count"]) == int(adam.count)
-        assert int(trainer.opt_state["total_notfinite"]) == int(state.total_notfinite)
+        for k in ("notfinite_count", "last_finite", "total_notfinite"):
+            assert int(trainer.opt_state[k]) == int(getattr(state, k)), k
     assert int(state.total_notfinite) == 1 and int(adam.count) == 5
 
 

@@ -2,8 +2,10 @@
 
 Layout mirrors ``vaegam_tpu`` module for module; every function takes an
 explicit ``device`` or works on the tensors it is given.  Entry points
-(``init_model``, ``Trainer``) run on the CUDA device unless the caller passes
-``device="cpu"``; without a card and without that request they raise.
+(``init_model``, ``Trainer``, the loaders, ``python -m
+vaegam_tpu_torch.cli.train``) run on the CUDA device unless the caller passes
+``device="cpu"`` (``--device cpu``); without a card and without that request
+they raise.
 
 The encoder's conv5 runs through a hand-written CUDA kernel
 (``ops/csrc/conv5.cu``) on CUDA tensors and through its plain PyTorch version

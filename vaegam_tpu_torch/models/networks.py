@@ -12,6 +12,12 @@ The transposed convs are torch's own: convt2 is
 ``conv_transpose3d(stride=2, padding=(1,0,1), output_padding=(1,0,1))`` and
 convt4 has a (5,3,3) kernel at stride 2, which is what the JAX
 ``lhs_dilation`` convs with padding (k-1-p, k-1-p+op) compute.
+
+Precision follows the JAX recipe step for step: with a half-precision
+``conv_dtype`` the stack input is cast once, activations stay in it between
+layers, weights are cast per call, the fp32 bias add promotes and casts
+back, norm statistics are fp32, and the FC layers, heads and sigmoid run in
+fp32.
 """
 
 from __future__ import annotations
@@ -159,33 +165,50 @@ def _linear(x, p):
     return F.linear(x, p["w"], p["b"])
 
 
-def _conv(x, p, stride):
-    return F.conv3d(x, p["w"], p["b"], stride=stride)
+def _conv(x, p, stride, conv_dtype=None):
+    """conv_dtype None: fp32 with the bias fused.  Otherwise x is already in
+    conv_dtype (cast once at stack entry, so activations stay in it between
+    layers); the weight is cast per call, the fp32 bias add promotes and the
+    result returns to x's dtype, as the JAX recipe's ``(y + b).astype``."""
+    if conv_dtype is None:
+        return F.conv3d(x, p["w"], p["b"], stride=stride)
+    y = F.conv3d(x, p["w"].to(conv_dtype), None, stride=stride)
+    return (y + p["b"].reshape(-1, 1, 1, 1)).to(x.dtype)
 
 
-def _conv_t(x, p, stride=1, padding=0, output_padding=0):
-    return F.conv_transpose3d(x, p["w"], p["b"], stride=stride,
-                              padding=padding, output_padding=output_padding)
+def _conv_t(x, p, stride=1, padding=0, output_padding=0, conv_dtype=None):
+    """Transposed conv with the precision rule of :func:`_conv`."""
+    kw = dict(stride=stride, padding=padding, output_padding=output_padding)
+    if conv_dtype is None:
+        return F.conv_transpose3d(x, p["w"], p["b"], **kw)
+    y = F.conv_transpose3d(x, p["w"].to(conv_dtype), None, **kw)
+    return (y + p["b"].reshape(-1, 1, 1, 1)).to(x.dtype)
 
 
-def encode(params, x, conv5_kernel: bool = True):
+def encode(params, x, conv5_kernel: bool = True, conv_dtype=None):
     """x: (B, D, H, W) -> (mu, u, d), each (B, num_latents).
 
-    conv5_kernel routes conv5 through ``ops.conv5`` (the hand-written CUDA
+    conv_dtype (e.g. torch.bfloat16) selects the conv stack's precision;
+    norm statistics, the FC stack and the heads stay fp32.  conv5_kernel
+    routes the fp32 conv5 through ``ops.conv5`` (the hand-written CUDA
     kernel on CUDA tensors, its plain version on CPU tensors) instead of
-    ``F.conv3d``.
+    ``F.conv3d``; a half-precision conv5 takes the stock conv, as the JAX
+    package's Pallas conv5 is fp32-only.
     """
+    cd = conv_dtype
     h = x[:, None]  # NCDHW with C=1
-    h = F.relu(_conv(batch_stat_norm(h, params["bn1"]), params["conv1"], 1))
-    h = F.relu(_conv(h, params["conv2"], 2))
-    h = F.relu(_conv(batch_stat_norm(h, params["bn3"]), params["conv3"], 1))
-    h = F.relu(_conv(h, params["conv4"], 2))
+    if cd is not None:
+        h = h.to(cd)  # one downcast; activations stay cd across the stack
+    h = F.relu(_conv(batch_stat_norm(h, params["bn1"]), params["conv1"], 1, cd))
+    h = F.relu(_conv(h, params["conv2"], 2, cd))
+    h = F.relu(_conv(batch_stat_norm(h, params["bn3"]), params["conv3"], 1, cd))
+    h = F.relu(_conv(h, params["conv4"], 2, cd))
     h5 = batch_stat_norm(h, params["bn5"])
-    if conv5_kernel:
+    if conv5_kernel and cd is None:
         h = F.relu(conv5(h5, params["conv5"]["w"], params["conv5"]["b"]))
     else:
-        h = F.relu(_conv(h5, params["conv5"], 1))
-    h = h.reshape(h.shape[0], -1)  # channel-major flatten
+        h = F.relu(_conv(h5, params["conv5"], 1, cd))
+    h = h.reshape(h.shape[0], -1).to(x.dtype)  # channel-major; FC stack in fp32
     h = F.relu(_linear(h, params["fc1"]))
     h = F.relu(_linear(h, params["fc2"]))
     mu = _linear(F.relu(_linear(h, params["fc31"])), params["fc41"])
@@ -194,12 +217,16 @@ def encode(params, x, conv5_kernel: bool = True):
     return mu, u, d
 
 
-def decode(params, z, img_shape=REFERENCE_IMG_SHAPE, stat_groups: int = 1):
+def decode(params, z, img_shape=REFERENCE_IMG_SHAPE, stat_groups: int = 1,
+           conv_dtype=None, fp32_final: bool = False):
     """z: (B*, z_dim) -> sigmoid volume flattened to (B*, prod(img_shape)).
 
     stat_groups: contiguous batch groups for the batch-stat norms.
+    conv_dtype: the conv stack's precision (FC layers stay fp32).
+    fp32_final: run convt5, the conv feeding the sigmoid, in fp32 even when
+    conv_dtype is half precision.  The sigmoid always takes fp32.
     """
-    sg = stat_groups
+    cd, sg = conv_dtype, stat_groups
     seed, crop = decoder_seed_shape(img_shape)
     c = params["convt1"]["w"].shape[0]
     h = F.relu(_linear(z, params["fc5"]))
@@ -207,13 +234,21 @@ def decode(params, z, img_shape=REFERENCE_IMG_SHAPE, stat_groups: int = 1):
     h = F.relu(_linear(h, params["fc7"]))
     h = F.relu(_linear(h, params["fc8"]))
     h = h.reshape(-1, c, *seed)
-    h = F.relu(_conv_t(batch_stat_norm(h, params["bnt1"], sg), params["convt1"]))
-    h = F.relu(_conv_t(h, params["convt2"], 2, (1, 0, 1), (1, 0, 1)))
-    h = F.relu(_conv_t(batch_stat_norm(h, params["bnt3"], sg), params["convt3"]))
-    h = F.relu(_conv_t(h, params["convt4"], 2))
-    h = _conv_t(batch_stat_norm(h, params["bnt5"], sg), params["convt5"])
+    if cd is not None:
+        h = h.to(cd)  # one downcast; activations stay cd across the stack
+    h = F.relu(_conv_t(batch_stat_norm(h, params["bnt1"], sg), params["convt1"],
+                       conv_dtype=cd))
+    h = F.relu(_conv_t(h, params["convt2"], 2, (1, 0, 1), (1, 0, 1), conv_dtype=cd))
+    h = F.relu(_conv_t(batch_stat_norm(h, params["bnt3"], sg), params["convt3"],
+                       conv_dtype=cd))
+    h = F.relu(_conv_t(h, params["convt4"], 2, conv_dtype=cd))
+    h = batch_stat_norm(h, params["bnt5"], sg)
+    if fp32_final and cd is not None:
+        h = _conv_t(h.to(z.dtype), params["convt5"])
+    else:
+        h = _conv_t(h, params["convt5"], conv_dtype=cd)
     if any(crop):
         h = h[:, :, : h.shape[2] - crop[0], : h.shape[3] - crop[1],
               : h.shape[4] - crop[2]]
-    h = torch.sigmoid(h)
+    h = torch.sigmoid(h.to(z.dtype))  # the log-likelihood consumes fp32 maps
     return h.reshape(h.shape[0], -1)

@@ -51,10 +51,6 @@ HRF_WINDOW_SECONDS = 20.0
 # fields of the JAX config this slice does not implement yet, with the
 # ROADMAP module item that ports them
 _NOT_YET = {
-    "conv_dtype": "bf16 recipe, ROADMAP module item 3",
-    "enc_conv_dtype": "bf16 recipe, ROADMAP module item 3",
-    "dec_conv_dtype": "bf16 recipe, ROADMAP module item 3",
-    "dec_fp32_final": "bf16 recipe, ROADMAP module item 3",
     "conv_pack": "lane-packed convs, ROADMAP module item 11",
     "qu_s_cholesky": "opt-in paths of ROADMAP module item 1",
     "x64_epsilon": "opt-in paths of ROADMAP module item 1",
@@ -65,7 +61,11 @@ _NOT_YET = {
 class VAEGAMConfig:
     """Static model configuration; fields and defaults as the JAX package's.
 
-    ``conv5_kernel`` (JAX: ``pallas_conv5``) routes the encoder's conv5
+    ``conv_dtype`` is None (fp32, the parity path) or a torch dtype such as
+    ``torch.bfloat16`` for the conv stacks; ``enc_conv_dtype`` /
+    ``dec_conv_dtype`` override it per stack ("inherit", None for fp32, or
+    a dtype) and ``dec_fp32_final`` keeps the decoder's last conv in fp32.
+    ``conv5_kernel`` (JAX: ``pallas_conv5``) routes the encoder's fp32 conv5
     through the hand-written CUDA kernel; it defaults to on, since the JAX
     default of off was a TPU measurement.
     """
@@ -97,6 +97,16 @@ class VAEGAMConfig:
         for name, where in _NOT_YET.items():
             if getattr(self, name) != defaults[name]:
                 raise NotImplementedError(f"{name} is not ported yet ({where})")
+
+    @property
+    def enc_cd(self):
+        """The encoder's conv dtype after the per-stack override."""
+        return self.conv_dtype if self.enc_conv_dtype == "inherit" else self.enc_conv_dtype
+
+    @property
+    def dec_cd(self):
+        """The decoder's conv dtype after the per-stack override."""
+        return self.conv_dtype if self.dec_conv_dtype == "inherit" else self.dec_conv_dtype
 
     @property
     def z_dim(self) -> int:
@@ -242,7 +252,7 @@ def forward(
         noise = draw_noise(generator, b, config, x.device)
 
     # --- encoder & latent sample ------------------------------------------
-    mu, u, d = encode(params["enc"], x, config.conv5_kernel)
+    mu, u, d = encode(params["enc"], x, config.conv5_kernel, config.enc_cd)
     # global d-floor: if ANY element is tiny, shift the WHOLE tensor
     d = torch.where((d < 1e-6).any(), d + 1e-6, d)
     if deterministic:
@@ -259,6 +269,7 @@ def forward(
     decoded = decode(
         params["dec"], zcat, config.img_shape,
         stat_groups=1 if config.fused_norm_stats else n_cov + 1,
+        conv_dtype=config.dec_cd, fp32_final=config.dec_fp32_final,
     ).reshape(n_cov + 1, b, config.img_dim)
     base, diffs = decoded[0], decoded[1:]                         # (B,D), (C,B,D)
 

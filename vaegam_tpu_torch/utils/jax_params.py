@@ -1,4 +1,4 @@
-"""Carry JAX parameter trees (as numpy arrays) into the port's layout.
+"""Carry JAX parameter trees (as numpy arrays) into the port's layout and back.
 
 Its own copy of the layout logic of ``vaegam_tpu/utils/torch_export.py``
 (that module imports the JAX model):
@@ -9,7 +9,8 @@ Its own copy of the layout logic of ``vaegam_tpu/utils/torch_export.py``
     torch channel-major; permute fc1's input columns and fc8's output rows
   * BatchNorm scale/shift, epsilon and the stacked GP bank carry over as is.
 Every mapping is a permutation or a flip, so the same function also maps a
-JAX GRADIENT tree onto the port's gradient layout.
+JAX GRADIENT tree (or Adam moment tree) onto the port's layout, and
+``params_to_jax`` inverts it exactly (checkpoints are written in JAX layout).
 """
 
 from __future__ import annotations
@@ -40,6 +41,14 @@ def _convt_w(w) -> np.ndarray:
     return np.transpose(_np(w)[::-1, ::-1, ::-1], (3, 4, 0, 1, 2))
 
 
+def _conv_w_inv(w) -> np.ndarray:
+    return np.transpose(_np(w), (2, 3, 4, 1, 0))
+
+
+def _convt_w_inv(w) -> np.ndarray:
+    return np.transpose(_np(w), (2, 3, 4, 0, 1))[::-1, ::-1, ::-1]
+
+
 def _fc1_w(w, c: int) -> np.ndarray:
     """(in, out) with channel-minor input -> (out, in) channel-major."""
     w = _np(w)
@@ -53,6 +62,21 @@ def _fc8(p, c: int):
     spatial = w.shape[1] // c
     w = w.reshape(w.shape[0], spatial, c).transpose(0, 2, 1).reshape(w.shape[0], -1)
     return w.T, b.reshape(spatial, c).T.reshape(-1)
+
+
+def _fc1_w_inv(w, c: int) -> np.ndarray:
+    """(out, in) channel-major -> (in, out) with channel-minor input."""
+    w = _np(w).T
+    spatial = w.shape[0] // c
+    return w.reshape(c, spatial, -1).transpose(1, 0, 2).reshape(c * spatial, -1)
+
+
+def _fc8_inv(p, c: int):
+    """(out, in) channel-major output -> (in, out) channel-minor output."""
+    w, b = _np(p["w"]).T, _np(p["b"])
+    spatial = w.shape[1] // c
+    w = w.reshape(w.shape[0], c, spatial).transpose(0, 2, 1).reshape(w.shape[0], -1)
+    return w, b.reshape(c, spatial).T.reshape(-1)
 
 
 def _convert_net(net: Dict[str, Any], c: int) -> Dict[str, Dict[str, np.ndarray]]:
@@ -107,3 +131,46 @@ def params_from_jax(params_np: Dict[str, Any], consts_np: Optional[Dict[str, Any
             "glm_maps": None if glm is None else to_t(_np(glm)),
         }
     return params, consts
+
+
+def _convert_net_inv(net: Dict[str, Any], c: int) -> Dict[str, Dict[str, np.ndarray]]:
+    out = {}
+    for name, p in net.items():
+        if name in _CONVS:
+            out[name] = {"w": _conv_w_inv(p["w"]), "b": _np(p["b"])}
+        elif name in _CONVTS:
+            out[name] = {"w": _convt_w_inv(p["w"]), "b": _np(p["b"])}
+        elif name.startswith("bn"):
+            out[name] = {"scale": _np(p["scale"]), "shift": _np(p["shift"])}
+        elif name == "fc1":
+            out[name] = {"w": _fc1_w_inv(p["w"], c), "b": _np(p["b"])}
+        elif name == "fc8":
+            w, b = _fc8_inv(p, c)
+            out[name] = {"w": w, "b": b}
+        elif name.startswith("fc"):
+            out[name] = {"w": _np(p["w"]).T, "b": _np(p["b"])}
+        else:
+            raise KeyError(f"unknown layer {name!r}")
+    return out
+
+
+def params_to_jax(params: Dict[str, Any], consts: Optional[Dict[str, Any]],
+                  config: VAEGAMConfig):
+    """The port's (params, consts) -> the JAX package's numpy trees; the
+    exact inverse of :func:`params_from_jax`.  ``consts`` may be None, which
+    is how an Adam moment tree is mapped."""
+    def host(t):
+        return None if t is None else np.ascontiguousarray(
+            t.detach().cpu().numpy() if torch.is_tensor(t) else t, np.float32)
+
+    c = 2 * config.nf
+    p = tree_map(host, params)
+    tree = {
+        "enc": _convert_net_inv(p["enc"], c),
+        "dec": _convert_net_inv(p["dec"], c),
+        "epsilon": p["epsilon"],
+        "gp": dict(p["gp"]),
+    }
+    tree = tree_map(np.ascontiguousarray, tree)
+    return tree, (None if consts is None else
+                  {k: host(v) for k, v in consts.items()})

@@ -1,8 +1,9 @@
 """The port's Trainer loop and train CLI against the JAX package's.
 
 train_loop's test/save schedule, the qu_S diagnostics dump, the CLI end to
-end on the CPU (device cache, streaming fallback, bf16, resume), the flags
-it refuses, and its parser against the JAX parser.  Thin model (nf=2,
+end on the CPU without its output stage (device cache, streaming fallback,
+bf16, resume; tests/test_torch_port_outputs.py runs the output stage), the
+flags it refuses, and its parser against the JAX parser.  Thin model (nf=2,
 8 latents, 21x25x21) on the e2e fixture's subject tree.
 """
 
@@ -96,14 +97,14 @@ def test_nonfinite_epoch_dumps_qu_S_diagnostics(tmp_path):
 
 def test_cli_trains_and_resumes_on_the_cpu(study, tmp_path):
     """--device cpu --no_outputs: 2 epochs on the device cache write
-    checkpoint_001.tar; --from_ckpt resumes it for 1 epoch at epoch 2 with
+    checkpoint_001.tar and a TensorBoard run; --from_ckpt resumes it for 1 epoch at epoch 2 with
     the saved params and the loss history carried over."""
     out = tmp_path / "run"
     t, loaders = main(_argv(study, out, "--epochs", "2", "--test_freq", "1",
                             "--save_freq", "1"))
     assert isinstance(loaders["Shuffled_train"], DeviceResidentLoader)
     assert loaders["test"].vols is loaders["Shuffled_train"].vols
-    assert sorted(os.listdir(out)) == ["checkpoint_001.tar"]
+    assert sorted(os.listdir(out)) == ["checkpoint_001.tar", "run"]  # run/: TensorBoard
     assert sorted(t.loss["train"]) == sorted(t.loss["test"]) == [0, 1]
     saved = load_checkpoint(str(out / "checkpoint_001.tar"))
     mine, _ = params_to_jax(t.params, None, t.config)
@@ -116,31 +117,30 @@ def test_cli_trains_and_resumes_on_the_cpu(study, tmp_path):
     assert r.epoch == 3 and sorted(r.loss["train"]) == [0, 1, 2]
     assert r.loss["train"][1] == t.loss["train"][1]
     assert np.isfinite(r.loss["train"][2]) and np.isfinite(r.loss["test"][2])
-    assert sorted(os.listdir(out)) == ["checkpoint_001.tar", "checkpoint_002.tar"]
+    assert sorted(os.listdir(out)) == ["checkpoint_001.tar", "checkpoint_002.tar", "run"]
 
 
 def test_cli_streaming_fallback_and_bf16(study, tmp_path, monkeypatch, capsys):
     """A cache budget of one byte sends the CLI to the streaming DataLoader
-    (said on stdout); the bf16 recipe with joint norm statistics trains."""
+    (said on stdout); the bf16 recipe with joint norm statistics trains and
+    logs TensorBoard under run/."""
     monkeypatch.setenv("VAEGAM_CACHE_MAX_BYTES", "1")
     t, loaders = main(_argv(study, tmp_path, "--epochs", "1", "--test_freq", "1",
                             "--conv_dtype", "bfloat16", "--fused_norm_stats"))
     out = capsys.readouterr().out
-    assert "[device cache disabled]" in out and "item 5" in out and "item 7" in out
+    assert "[device cache disabled]" in out and "item 5" in out and "item 7" not in out
+    assert t.writer is not None and (tmp_path / "run").is_dir()
     assert isinstance(loaders["Shuffled_train"], DataLoader)
     assert t.config.conv_dtype == torch.bfloat16 and t.config.fused_norm_stats
     assert np.isfinite(t.loss["train"][0]) and np.isfinite(t.loss["test"][0])
 
 
 @pytest.mark.parametrize("extra,item", [
-    ((), "item 7"),                                   # no --no_outputs
     (("--data_parallel",), "item 10"),
     (("--multihost",), "item 10"),
     (("--epoch_scan",), "item 6"),
     (("--qu_s_cholesky",), "item 1"),
     (("--x64_epsilon",), "item 1"),
-    (("--recon_wire_dtype", "float16"), "item 7"),
-    (("--eval_batch_size", "64"), "item 7"),
     (("--stream_dtype", "bfloat16"), "item 5"),
 ])
 def test_cli_refuses_unported_flags_before_any_work(tmp_path, extra, item):
@@ -148,8 +148,6 @@ def test_cli_refuses_unported_flags_before_any_work(tmp_path, extra, item):
     argv = ["--train_csv", str(tmp_path / "missing.csv"),
             "--test_csv", str(tmp_path / "missing.csv"), "--device", "cpu",
             "--save_dir", str(tmp_path / "never")]
-    if extra:
-        argv.append("--no_outputs")
     with pytest.raises(NotImplementedError, match=item):
         main(argv + list(extra))
     assert not (tmp_path / "never").exists()

@@ -322,7 +322,10 @@ def test_port_imports_with_jax_blocked():
             "vaegam_tpu_torch.data.dataset, vaegam_tpu_torch.data.device_cache, "
             "vaegam_tpu_torch.utils.jax_params, vaegam_tpu_torch.utils.nifti, "
             "vaegam_tpu_torch.utils.nifti_native, vaegam_tpu_torch.utils.stats, "
-            "vaegam_tpu_torch.train.checkpoint, vaegam_tpu_torch.cli.train\n"
+            "vaegam_tpu_torch.train.checkpoint, vaegam_tpu_torch.cli.train, "
+            "vaegam_tpu_torch.outputs, vaegam_tpu_torch.outputs.recons, "
+            "vaegam_tpu_torch.outputs.latents, vaegam_tpu_torch.outputs.gp_plots, "
+            "vaegam_tpu_torch.outputs.umap_native, vaegam_tpu_torch.utils.tb\n"
             "assert 'triton' not in sys.modules\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,

@@ -3,20 +3,21 @@
 Flag-for-flag the parser of ``vaegam_tpu.cli.train`` (reference
 multsubj_reg_run_GP.py:21-54, hyphenated ``--batch-size`` included), plus
 ``--device`` (default: the CUDA device; ``cpu`` runs the port on the CPU).
-``main`` follows the JAX CLI up to the output stage: the on-card data cache
+``main`` follows the JAX CLI: the on-card data cache
 (``VAEGAM_CACHE_MAX_BYTES`` shrinks its budget), the streaming loader when
 the data exceeds it, the GLM maps and inducing-point ranges from the CSVs,
-the Trainer, ``--from_ckpt`` resume, ``train_loop`` and an optional
-torch.profiler trace.
+the Trainer with TensorBoard, ``--from_ckpt`` resume, ``train_loop``, then
+the output stage (latent plot, GP plots, per-volume reconstructions,
+averaged maps; ``--no_outputs`` skips it, ``--recons_only`` runs it alone
+from a checkpoint, ``--eval_batch_size`` widens its batches), and an
+optional torch.profiler trace.
 
 Not ported yet, and refused before any work when set away from their
-defaults: the output stage (run with ``--no_outputs``), data parallelism,
-``--epoch_scan``, ``--qu_s_cholesky``, ``--x64_epsilon``,
-``--recon_wire_dtype float16``, ``--eval_batch_size`` and
-``--stream_dtype``.
+defaults: data parallelism, ``--epoch_scan``, ``--qu_s_cholesky``,
+``--x64_epsilon`` and ``--stream_dtype``.
 
     python -m vaegam_tpu_torch.cli.train --train_csv T --test_csv E \\
-        --glm_maps G --save_dir S --epochs N --batch-size 32 --no_outputs
+        --glm_maps G --save_dir S --epochs N --batch-size 32
 """
 
 from __future__ import annotations
@@ -29,9 +30,10 @@ import pandas as pd
 import torch
 
 from .._device import resolve_device
-from ..data import setup_data_loaders, setup_device_loaders
+from ..data import setup_data_loaders, setup_device_loaders, wide_eval_view
 from ..data.device_cache import DEFAULT_MAX_BYTES
 from ..models import VAEGAMConfig
+from ..outputs import mk_avg_maps, mk_single_volumes, plot_GPs, project_latent
 from ..train import Trainer
 from ..utils.stats import get_xu_ranges, str2bool
 
@@ -42,8 +44,6 @@ _NOT_YET = (
     ("epoch_scan", False, "whole-epoch replay, ROADMAP module item 6"),
     ("qu_s_cholesky", False, "opt-in paths of ROADMAP module item 1"),
     ("x64_epsilon", False, "opt-in paths of ROADMAP module item 1"),
-    ("recon_wire_dtype", "float32", "output stage, ROADMAP module item 7"),
-    ("eval_batch_size", 0, "output stage, ROADMAP module item 7"),
     ("stream_dtype", "float32", "prefetch loader, ROADMAP module item 5"),
 )
 
@@ -90,10 +90,10 @@ def build_parser():
     parser.add_argument("--no_outputs", type=str2bool, nargs="?", const=True,
                         default=False,
                         help="Skip the post-training output stage (latent plot, GP plots, "
-                             "reconstructions, averaged maps). The port has no output stage "
-                             "yet, so it requires this flag.")
+                             "reconstructions, averaged maps). Extension flag; default False "
+                             "reproduces the reference pipeline.")
     parser.add_argument("--log_figs_every", type=int, metavar="N", default=50,
-                        help="Log per-batch map/beta TB figures every N batches (0 = off). TensorBoard logging is not ported yet.")
+                        help="Log per-batch map/beta TB figures every N batches (0 = off). The reference logs these EVERY batch; the default 50 keeps the same TB artifact families as a sampled subset.")
     parser.add_argument("--data_parallel", type=str2bool, nargs="?", const=True,
                         default=False,
                         help="Shard batches over all visible devices (not ported yet).")
@@ -130,9 +130,9 @@ def build_parser():
                         help="Host->device wire precision of the prefetch loader (not ported yet; float32 only).")
     parser.add_argument("--recon_wire_dtype",
                         choices=["float32", "float16"], default="float32",
-                        help="Device->host wire precision of the output stage (not ported yet; float32 only).")
+                        help="Device->host wire precision for the recon output stage's 10 maps. float16 halves the copied bytes at 2^-11 RELATIVE quantization; the written .nii files stay float32. Default float32 = bit-exact parity.")
     parser.add_argument("--eval_batch_size", type=int, metavar="N", default=0,
-                        help="Batch width of the output stage (not ported yet; 0 only).")
+                        help="Batch width for the post-training output stage (latent projection + volume reconstruction). 0 (default) reuses --batch-size (batch-stat norms make outputs batch-size-dependent). N>0 widens the eval forwards; capped so two 10-map output blocks fit in 1.5 GiB.")
     parser.add_argument("--x64_epsilon", type=str2bool, nargs="?", const=True,
                         default=False,
                         help="Float64 epsilon like the reference (not ported yet).")
@@ -156,10 +156,6 @@ def check_ported(args) -> None:
         if getattr(args, name) != default:
             raise NotImplementedError(f"--{name} {getattr(args, name)} is not "
                                       f"ported yet ({where})")
-    if not args.no_outputs:
-        raise NotImplementedError(
-            "the output stage (latent plot, GP plots, reconstructions, averaged "
-            "maps) is not ported yet (ROADMAP module item 7); pass --no_outputs")
 
 
 def main(argv=None):
@@ -211,13 +207,12 @@ def main(argv=None):
         glm_maps = pd.read_csv(args.glm_maps).to_numpy()
     xu_ranges = get_xu_ranges([args.train_csv, args.test_csv])
 
-    print("[tensorboard] TensorBoard logging (Loss/Train, q(u) and per-batch "
-          "figures) is not ported yet (ROADMAP module item 7)")
     trainer = Trainer(
         config, xu_ranges, glm_maps=glm_maps, save_dir=args.save_dir,
         seed=args.seed, log_figs_every=args.log_figs_every,
         skip_nonfinite_updates=args.skip_nonfinite_updates,
-        grad_clip=args.grad_clip, device=device,
+        grad_clip=args.grad_clip, recon_wire_dtype=args.recon_wire_dtype,
+        device=device,
     )
 
     if args.from_ckpt:
@@ -244,6 +239,21 @@ def main(argv=None):
         )
     elif not args.from_ckpt:
         raise ValueError("To choose recons_only option, --from_ckpt needs to be TRUE.")
+    if not args.no_outputs:
+        # the output stage at the training width unless --eval_batch_size:
+        # the batch-stat norms make every forward batch-size-dependent
+        eval_loaders = dict(loaders_dict)
+        if args.eval_batch_size:
+            eval_loaders["UnShuffled_train"] = wide_eval_view(
+                loaders_dict["UnShuffled_train"], config.img_dim,
+                width=args.eval_batch_size,
+            )
+        project_latent(trainer, eval_loaders, title="Latent Space plot",
+                       split=args.split, save_dir=args.save_dir)
+        plot_GPs(trainer, csv_file=args.train_csv, save_dir=args.save_dir)
+        mk_single_volumes(eval_loaders["UnShuffled_train"], trainer,
+                          args.train_csv, args.save_dir)
+        mk_avg_maps(args.train_csv, trainer, args.save_dir, mk_motion_maps=True)
     if prof is not None:
         prof.stop()
         os.makedirs(args.profile_dir, exist_ok=True)

@@ -48,6 +48,23 @@ def evaluate_posterior(xu, k_var, ls, qu_m, qu_S, xq):
     return f_bar, sigma
 
 
+def evaluate_posterior_diag(xu, k_var, ls, qu_m, qu_S, xq):
+    """Posterior mean and MARGINAL variance over xq, without the (B, B) Sigma.
+
+    The diagonal of :func:`evaluate_posterior`:
+      diag(Sigma) = k_var + sum_pq a_t[p,b] (qu_S - Kuu)[p,q] a_t[q,b]
+    (the RBF at zero distance is k_var).  O(B P) memory, so plot_GPs can
+    evaluate a study's every CSV row.  Shapes as :func:`evaluate_posterior`;
+    returns f_bar (G, B) and var (G, B).
+    """
+    kuq = rbf_gram(xu, xq, k_var, ls)          # (G, P, B)
+    kuu = rbf_gram(xu, xu, k_var, ls)          # (G, P, P)
+    a_t = torch.linalg.solve(kuu, kuq)         # (G, P, B)
+    f_bar = (a_t.mT @ qu_m[:, :, None])[..., 0]
+    var = k_var[:, None] + torch.einsum("gpb,gpq,gqb->gb", a_t, qu_S - kuu, a_t)
+    return f_bar, var
+
+
 def gp_kl(qu_m, qu_S):
     """KL( N(qu_m, qu_S) || N(0, 10 I) ) per GP;  NaN if qu_S is not PSD."""
     return mvn_kl(qu_m, qu_S, GP_PRIOR_VAR)

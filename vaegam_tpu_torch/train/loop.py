@@ -9,21 +9,23 @@ vae_reg_GP.py:415-450,691-715):
     "Epoch: N Average loss: ..." / "Test loss: ...";
   * test every ``test_freq`` epochs, ``checkpoint_{epoch:03d}.tar`` every
     ``save_freq`` (skipping epoch 0); resume restores params, optimizer
-    state, epoch, loss history and the generator's state.
+    state, epoch, loss history and the generator's state;
+  * TensorBoard under ``save_dir/run/<MM_DD_YYYY>``: ``Loss/Train`` and the
+    q(u)/q(k) figures per epoch, and every ``log_figs_every`` batches the
+    beta and map figures of one maps forward.
 
 The optimizer is written out in optax's shape rather than taken from
 ``torch.optim.Adam``: the skip of a non-finite step is a ``torch.where`` on
 the device, so a step needs no host sync.  On a non-finite gradient no
 parameter, Adam moment or step count changes.  Device-resident loaders feed
 gather-fused steps (``iter_index_batches`` + ``gather``); host loaders'
-numpy batches go to the card from pinned memory.  TensorBoard figures are
-not ported yet (ROADMAP module item 7): ``enable_tb`` and
-``log_figs_every`` are accepted and no writer is built.
+numpy batches go to the card from pinned memory.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import datetime
 import os
 import pickle
 import time
@@ -33,7 +35,9 @@ import numpy as np
 import torch
 
 from .._device import configure_cuda_backends, resolve_device
-from ..models.vaegam import VAEGAMConfig, forward, init_model, resolve_qu_S
+from ..models.vaegam import (COVARIATE_KEYS, VAEGAMConfig, forward, init_model,
+                             resolve_qu_S)
+from ..utils import tb
 from ..utils.jax_params import params_from_jax, params_to_jax
 from ..utils.tree import tree_items, tree_map
 from .checkpoint import (checkpoint_filename, flatten, load_checkpoint,
@@ -51,6 +55,14 @@ class Trainer:
     initialized from ``seed``.  Runs on the CUDA device unless
     ``device="cpu"``; on the card it turns TF32 off for the fp32 path and
     cuDNN's algorithm search on.
+
+    ``recon_wire_dtype`` "float16" casts the output stage's maps to float16
+    on the device before their copy to the host (half the bytes; the files
+    stay float32); training-time figures always use fp32 maps.
+    ``epoch_seconds``, ``tb_seconds`` (the per-epoch TensorBoard logging),
+    ``figure_seconds`` (the per-batch figures of an epoch, their maps
+    forward included) and ``output_stats`` (filled by the ``outputs``
+    functions) record where a run's time went.
     """
 
     def __init__(
@@ -65,6 +77,7 @@ class Trainer:
         enable_tb: bool = True,
         skip_nonfinite_updates: bool = True,
         grad_clip: float = 0.0,
+        recon_wire_dtype: str = "float32",
         device=None,
         params=None,
         consts=None,
@@ -76,9 +89,11 @@ class Trainer:
         self.save_dir = save_dir
         self.lr = lr
         self.log_figs_every = log_figs_every
-        self.enable_tb = enable_tb
         self.skip_nonfinite_updates = skip_nonfinite_updates
         self.grad_clip = grad_clip
+        if recon_wire_dtype not in ("float32", "float16"):
+            raise ValueError(f"recon_wire_dtype {recon_wire_dtype!r}")
+        self._maps_wire = torch.float16 if recon_wire_dtype == "float16" else None
         if save_dir:
             os.makedirs(save_dir, exist_ok=True)
         self.generator = torch.Generator(device=self.device)
@@ -95,6 +110,22 @@ class Trainer:
         self.mvn_fallbacks = 0
         self._skips_warned = 0
         self.epoch_seconds: Dict[int, float] = {}
+        self.tb_seconds: Dict[int, float] = {}
+        self.figure_seconds: Dict[int, float] = {}
+        self.output_stats: Dict[str, object] = {}
+
+        # the figures' maps forward runs whenever figures are on, as in the
+        # JAX Trainer; only the rendering needs the writer
+        self._figs_enabled = bool(enable_tb and save_dir and log_figs_every)
+        self._figures_missing: set = set()
+        self.writer = None
+        if enable_tb and save_dir:
+            log_dir = os.path.join(save_dir, "run",
+                                   datetime.datetime.now().date().strftime("%m_%d_%Y"))
+            try:
+                self.writer = tb.make_writer(log_dir)
+            except ImportError as e:
+                print(f"[tensorboard] no event file under {log_dir}: {e}")
 
     def _set_params(self, params) -> None:
         self.params = tree_map(
@@ -207,11 +238,19 @@ class Trainer:
         else:
             batches = (self._put_batch(s) for s in loader)
         losses, fbs, last_covs = [], [], None
-        for covs, x in batches:
+        for batch_idx, (covs, x) in enumerate(batches):
             loss, aux = self.train_step(covs, x)
             losses.append(loss)
             fbs.append(aux["mvn_fallbacks"])
             last_covs = covs
+            if self._figs_enabled and batch_idx % self.log_figs_every == 0:
+                # the step's own gathered batch: on the device cache this is
+                # the JAX Trainer's re-gather of the sampled batch alone
+                t_fig = time.perf_counter()
+                self._log_batch_figures(covs, x, "train")
+                self.figure_seconds[self.epoch] = (
+                    self.figure_seconds.get(self.epoch, 0.0)
+                    + time.perf_counter() - t_fig)
         train_loss = float(torch.stack(losses).sum()) if losses else 0.0
         self._account_mvn_fallbacks(fbs)
         if not np.isfinite(train_loss):
@@ -260,14 +299,77 @@ class Trainer:
         print("Test set:", loaders["test"].num_samples)
         print("=" * 40)
         for epoch in range(self.epoch, self.epoch + epochs):
-            self.loss["train"][epoch] = self.train_epoch(loaders["Shuffled_train"])
+            loss = self.train_epoch(loaders["Shuffled_train"])
+            self.loss["train"][epoch] = loss
+            if self.writer is not None:
+                t0 = time.perf_counter()
+                self.writer.add_scalar("Loss/Train", loss, self.epoch)
+                gp_np = {k: v.detach().cpu().numpy()
+                         for k, v in self.params["gp"].items()}
+                gp_np["qu_S"] = resolve_qu_S(self.params["gp"]).detach().cpu().numpy()
+                xu_np = self.consts["xu"].cpu().numpy()
+                self._figure("q(u)_train", tb.log_qu_plots, self.epoch, gp_np,
+                             xu_np, self.writer, "train")
+                self._figure("q(k)_train", tb.log_qkappa_plots, gp_np,
+                             self.writer, "train")
+                self.writer.flush()
+                self.tb_seconds[epoch] = time.perf_counter() - t0
             if test_freq is not None and epoch % test_freq == 0:
                 self.loss["test"][epoch] = self.test_epoch(loaders["test"])
             if save_freq is not None and epoch % save_freq == 0 and epoch > 0:
                 self.save_state(os.path.join(save_dir or self.save_dir,
                                              checkpoint_filename(epoch)))
+        if self.writer is not None:
+            self.writer.flush()
+
+    # ------------------------------------------------------------ maps steps
+    @torch.no_grad()
+    def maps_step(self, covs, x, wire=None):
+        """Forward with maps and generator-drawn noise; with ``wire`` the
+        maps are cast to it on the device.  Returns (loss, aux)."""
+        loss, aux = forward(self.params, self.consts, covs, x, self.config,
+                            generator=self.generator, return_maps=True)
+        if wire is not None:
+            aux["maps"] = {k: v.to(wire) for k, v in aux["maps"].items()}
+        return loss, aux
+
+    def recon_maps_step(self, covs, x):
+        """The output stage's maps step: :meth:`maps_step` on the
+        ``recon_wire_dtype`` wire."""
+        return self.maps_step(covs, x, self._maps_wire)
 
     # -------------------------------------------------------- observability
+    def _figure(self, tag, fn, *args) -> None:
+        """Render one TensorBoard figure; without its plotting library, say
+        once which figure is not written and why."""
+        try:
+            fn(*args)
+        except ImportError as e:
+            if tag not in self._figures_missing:
+                self._figures_missing.add(tag)
+                print(f"[tensorboard] figure {tag} not written: {e}")
+
+    def _log_batch_figures(self, covs, x, log_type):
+        """Per-batch beta and map figures from one fp32 maps forward (the
+        reference logs these every batch)."""
+        _, aux = self.maps_step(covs, x)
+        if self.writer is None:
+            return
+        maps = {k: v.cpu().numpy() for k, v in aux["maps"].items()}
+        b = maps["base"].shape[0]
+        for slc in (12, 15, 18):
+            for key, name in (("base", "base_map"), ("task", "task_map"),
+                              ("full_rec", "full_reconstruction")):
+                self._figure(f"{name}_{log_type}", tb.log_map, self.writer,
+                             self.config.img_shape, maps[key], slc, name, b,
+                             log_type)
+        beta_mean = aux["beta_mean"].cpu().numpy()
+        beta_var = aux["beta_cov_diag"].cpu().numpy()
+        covs_np = covs.cpu().numpy()
+        for j, name in enumerate(COVARIATE_KEYS):
+            self._figure(f"Beta/{name}_{log_type}", tb.log_beta, self.writer,
+                         covs_np[:, j], beta_mean[j], beta_var[j], name, log_type)
+
     def check_gp_stability(self, covariates=None) -> bool:
         """Dump qu_S diagnostics if any GP posterior cov went non-PSD
         (the reference's qu_S_diagnostics.tar, gp.py:47-63).  Returns True

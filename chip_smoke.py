@@ -12,7 +12,7 @@ Phases (any failure exits non-zero; nothing is caught to exit 0):
   3. each kernel against its plain PyTorch version on the card, forward and
      backward, at every shape the main path gives it (batch 32, the study's
      last batch of 20, --eval_batch_size 128 and its last batch of 84,
-     phase 4's B=4 forward) and
+     phase 4's B=4 forward, the oracle's last batch of 2) and
      a few others (both of conv5's staging paths); phases 4-6 record the
      shape of every launch and fail on one this phase did not check;
      device time of conv5 and F.conv3d at the main and MNI shapes, with
@@ -57,9 +57,24 @@ Phases (any failure exits non-zero; nothing is caught to exit 0):
      parameters, the UMAP backend (native, its layout on the card); the
      first run's tree is deleted before the second.  The native UMAP on the
      card must pass the JAX package's gates on its two-cluster fixture;
-  7. one JSON line with the kernels' numbers, one with the step time, one
-     with the CLI's numbers, one with the output stage's numbers;
-  8. as the last line: {"ok": true, "device": {...}}.
+  7. the correctness oracle at every default:
+     ``vaegam_tpu_torch.tools.control_experiment.main(["--work_dir", W,
+     "--epochs", "900"])`` in this process (1 subject x 98 volumes, full
+     width, fp32, GLM regularizer, qu_s_cholesky, fused norm statistics):
+     it must run to its end, exit by its own gate rule (0 when
+     "recovered": true, else 1) with finite metrics, and launch conv5
+     exactly once per train and recon forward (900 x 4 + 4 = 3,604, at
+     B = 32 and 2); its JSON line, its verdict and its seconds by stage are
+     printed.  The verdict is not required: the oracle recovers in about
+     half its runs at its defaults on this card (PERF.md);
+  8. the beta_maps CLI on a synthetic FSL tree at the reference grid (10
+     subjects x 98 volumes, an exact linear model): the float64 host solve
+     and the float32 solve on the card, each CSV against the ground truth,
+     each timed;
+  9. one JSON line with the kernels' numbers, one with the step time, one
+     with the CLI's numbers, one with the output stage's numbers, one with
+     the oracle's and one with beta_maps';
+ 10. as the last line: {"ok": true, "device": {...}}.
 Imports nothing of JAX or of the JAX package.
 """
 
@@ -83,6 +98,7 @@ import torch
 SEED = 0
 N_VOLS, BATCH, TIMED_STEPS = 128, 32, 20
 STUDY_SUBJECTS, STUDY_VOLS = 10, 98    # the reference's --split 98
+ORACLE_EPOCHS, ORACLE_VOLS = 900, 98   # the oracle's gate at its defaults
 CLI_EPOCHS, BF16_EPOCHS = 3, 2
 WIDE_EVAL_BATCH = 128                  # the output stage's --eval_batch_size run
 XU_RANGES = [[-2.0, 2.0]] * 6          # as bench.py
@@ -158,12 +174,14 @@ N_STUDY = STUDY_SUBJECTS * STUDY_VOLS
 CONV5_SHAPES = {  # (B, Ci, D, H, W, Co)
     # nf=8 on 41x49x35 at every batch width the main path gives conv5:
     # batch 32, the study's last batch at 32, --eval_batch_size 128 and its
-    # last batch, and phase 4's B=4 card-vs-CPU forward
+    # last batch, phase 4's B=4 card-vs-CPU forward, and the oracle's last
+    # batch (98 volumes at batch 32)
     "main": (BATCH, 16, 8, 10, 6, 16),
     "tail": (N_STUDY % BATCH, 16, 8, 10, 6, 16),
     "wide": (WIDE_EVAL_BATCH, 16, 8, 10, 6, 16),
     "wide-tail": (N_STUDY % WIDE_EVAL_BATCH, 16, 8, 10, 6, 16),
     "b4": (4, 16, 8, 10, 6, 16),
+    "oracle_tail": (ORACLE_VOLS % BATCH, 16, 8, 10, 6, 16),
     "odd-batch": (3, 16, 8, 10, 6, 16),
     "mni": (4, 16, 20, 25, 20, 16),      # 91x109x91 grid
     "thin": (4, 4, 3, 4, 3, 4),          # nf=2 on 21x25x21
@@ -941,6 +959,170 @@ def drive_cli(conv5_mod, libs):
     return by_path, numbers, outputs
 
 
+# ---------------------------------------------------------------------------
+# the correctness oracle, and beta_maps
+# ---------------------------------------------------------------------------
+
+def drive_oracle(conv5_mod):
+    """Phase 7: the port's control experiment at every default, in this
+    process, with conv5's count set to 0 just before it.  Its own output
+    goes to a log; its JSON line and the tail of the log are printed.
+    Returns (conv5 launches, the tool's result, the phase's seconds)."""
+    import contextlib
+
+    from vaegam_tpu_torch.tools import control_experiment
+
+    work = Path(tempfile.mkdtemp(prefix="vaegam_oracle_"))
+    log = work / "control_experiment.log"
+    argv = ["--work_dir", str(work / "ctl"), "--epochs", str(ORACLE_EPOCHS)]
+    try:
+        torch.cuda.synchronize()
+        conv5_mod.conv5.launches = 0
+        t0 = time.perf_counter()
+        try:
+            with open(log, "w") as f, contextlib.redirect_stdout(f):
+                rc = control_experiment.main(argv)
+        finally:
+            lines = log.read_text().splitlines()
+            print("control_experiment " + " ".join(argv[2:]) + ": last lines of its log:\n"
+                  + "\n".join(line[:300] for line in lines[-4:]))
+        torch.cuda.synchronize()
+        phase_s = time.perf_counter() - t0
+        launches = conv5_mod.conv5.launches
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    result = json.loads(next(line for line in reversed(lines) if line.startswith("{")))
+    steps = -(-ORACLE_VOLS // BATCH)
+    want = ORACLE_EPOCHS * steps + steps
+    st = result["stage_seconds"]
+    print(json.dumps(result))
+    print(f"oracle seconds: data generation {st['generate']:.2f}, add_signal "
+          f"{st['add_signal']:.2f}, preproc {st['preproc']:.2f}, training "
+          f"{st['train']:.2f}, recon {st['recon']:.2f}, averages {st['averages']:.2f}; "
+          f"the whole phase {phase_s:.1f}")
+    print(f"oracle: exit {rc}, recovered {result['recovered']}, contrast "
+          f"{result['contrast_ratio']}, inside mean {result['task_map_mean_inside']} "
+          f"(expected {result['expected_scaled_signal']}), non-finite skips "
+          f"{result['nonfinite_skips']}, gain-Cholesky fallbacks {result['mvn_fallbacks']}; "
+          f"conv5 launches {launches} (want {want} = {ORACLE_EPOCHS} epochs x {steps} "
+          f"train forwards + {steps} recon forwards)")
+    # the gate's verdict is reported, not required: at its defaults the
+    # oracle recovers in about half its runs on this card, from the same
+    # weights, data and code (PERF.md §6); the tool must still exit by its
+    # own rule, with finite numbers
+    if rc != (0 if result["recovered"] else 1):
+        fail(f"the oracle exited {rc} with recovered {result['recovered']}")
+    numbers = [result[k] for k in ("task_map_mean_inside", "abs_inside", "abs_outside",
+                                   "contrast_ratio", "train_seconds")]
+    if not np.isfinite(numbers).all() or result["epochs"] != ORACLE_EPOCHS:
+        fail(f"the oracle's result is not finite or not {ORACLE_EPOCHS} epochs: {numbers}")
+    print(f"oracle gate: {'recovered' if result['recovered'] else 'NOT recovered'}")
+    if launches != want:
+        fail("conv5 did not launch once per train and recon forward in the oracle")
+    return launches, result, phase_s
+
+
+BETA_SUBJECTS, BETA_VOLS = 10, 98
+
+
+def write_feat_tree(root: Path, img_shape, seed):
+    """A synthetic FSL tree (tests/test_beta_maps_cli.py's, at the reference
+    grid): per subject a design.mat of task, two distractors and six motion
+    columns and a filtered_func_data.nii.gz from an exact linear model in
+    task and motion; a sex cope map.  Returns (sex map path, the expected
+    (8, voxels) maps before max-scaling)."""
+    from vaegam_tpu_torch.utils import nifti
+
+    rng = np.random.default_rng(seed)
+    n_vox = int(np.prod(img_shape))
+    true_betas = rng.normal(size=(7, n_vox))
+    for s in range(BETA_SUBJECTS):
+        feat = root / f"sub-A000{60 + s}" / "run1_corrected.feat"
+        os.makedirs(feat)
+        task = rng.integers(0, 2, BETA_VOLS).astype(float)
+        full_dm = np.column_stack([task, rng.normal(size=(BETA_VOLS, 2)),
+                                   rng.normal(size=(BETA_VOLS, 6))])
+        rows = ["\t".join(f"{v:.6f}" for v in row) for row in full_dm]
+        (feat / "design.mat").write_text("\n".join(
+            [f"/NumWaves {full_dm.shape[1]}", f"/NumPoints {BETA_VOLS}", "/PPheights 1",
+             "", "/Matrix"] + rows) + "\n")
+        # the model on the design as written (6 decimals), so it is exact
+        dm = np.loadtxt(feat / "design.mat", skiprows=5)
+        data = (np.column_stack([dm[:, 0], dm[:, -6:]]) @ true_betas).T
+        nifti.save(nifti.Nifti1Image(data.reshape(tuple(img_shape) + (BETA_VOLS,))
+                                     .astype(np.float32), np.eye(4)),
+                   str(feat / "filtered_func_data.nii.gz"))
+    sex_map = rng.normal(size=img_shape).astype(np.float32)
+    sex_path = root / "sex_cope.nii.gz"
+    nifti.save(nifti.Nifti1Image(sex_map, np.eye(4)), str(sex_path))
+    return str(sex_path), np.concatenate([true_betas, sex_map.reshape(1, -1)])
+
+
+def drive_beta_maps():
+    """Phase 8: the beta_maps CLI with the float64 host solve and the
+    float32 solve on the card, each CSV against the ground truth, each CLI
+    run and each solve alone timed."""
+    import pandas as pd
+
+    from vaegam_tpu_torch.cli import beta_maps
+
+    img_shape = (41, 49, 35)
+    root = Path(tempfile.mkdtemp(prefix="vaegam_feat_"))
+    out = {"subjects": BETA_SUBJECTS, "volumes": BETA_SUBJECTS * BETA_VOLS}
+    try:
+        t0 = time.perf_counter()
+        sex_path, expected = write_feat_tree(root / "feat", img_shape, SEED)
+        out["write_s"] = time.perf_counter() - t0
+        want = expected / expected.max(axis=1, keepdims=True)
+        # float64: tests/test_beta_maps_cli.py's tolerance.  float32 on the
+        # card: a QR solve of a (980, 7) design whose condition number is
+        # ~3 keeps ~6 digits of the max-scaled maps; held at 1e-3 absolute
+        tols = {"float64": (2e-3, 2e-4), "float32": (0.0, 1e-3)}
+        for dtype, (rtol, atol) in tols.items():
+            t0 = time.perf_counter()
+            csv = beta_maps.main(["--root_dir", str(root / "feat"), "--output_dir",
+                                  str(root / dtype), "--data_dims", *map(str, img_shape),
+                                  str(BETA_VOLS), "--sex_covars_map", sex_path,
+                                  "--solve_dtype", dtype])
+            torch.cuda.synchronize()
+            cli_s = time.perf_counter() - t0
+            frame = pd.read_csv(csv)
+            got = frame.iloc[:, 1:].to_numpy().T
+            err = float(np.abs(got - want).max())
+            ok = list(frame.columns[1:]) == ["task", "x", "y", "z", "xrot", "yrot",
+                                             "zrot", "sex"] and \
+                np.allclose(got, want, rtol=rtol, atol=atol)
+            print(f"beta_maps --solve_dtype {dtype}: CLI {cli_s:.2f} s, max abs error "
+                  f"{err:.3e} against the ground truth (rtol {rtol}, atol {atol})")
+            if not ok:
+                fail(f"beta_maps {dtype} misses the ground-truth maps")
+            out[dtype] = {"cli_s": cli_s, "max_abs_err": err, "rtol": rtol, "atol": atol}
+        # the solve alone, on the stacked inputs the CLI builds
+        from vaegam_tpu_torch.utils import nifti
+        from vaegam_tpu_torch.utils.stats import read_design_mat
+
+        feats = sorted((root / "feat").glob("sub-*/run1_corrected.feat"))
+        dms = [read_design_mat(str(f / "design.mat")) for f in feats]
+        gamma = np.concatenate([np.column_stack([dm[:, 0], dm[:, -6:]]) for dm in dms])
+        bold = np.concatenate([np.asarray(nifti.load(
+            str(f / "filtered_func_data.nii.gz")).dataobj).reshape(-1, BETA_VOLS)
+            for f in feats], axis=1)
+        for dtype in tols:
+            secs = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                beta_maps.solve_beta_maps(gamma, bold, dtype=dtype, device="cuda")
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+            out[dtype]["solve_s"] = secs
+            print(f"beta_maps solve alone, {dtype}: {[round(x, 4) for x in secs]} s "
+                  f"({gamma.shape} design, {bold.shape[0]} voxels)")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", default=None,
@@ -974,24 +1156,30 @@ def main(argv=None) -> int:
     # 3. kernels vs plain versions
     err, timing = check_conv5(conv5_mod)
 
-    # 4-6. the train step; the train CLI on a NIfTI study, and its output stage
+    # 4-7. the train step; the train CLI on a NIfTI study, and its output
+    # stage; the correctness oracle
     with Conv5Shapes(conv5_mod) as shapes:
         step_launches, step_ms, all_ms, peak_gib = drive_main_path(conv5_mod, args.profile)
         libs = host_libraries()
         cli_launches, cli, outputs = drive_cli(conv5_mod, libs)
+        oracle_launches, oracle, oracle_s = drive_oracle(conv5_mod)
     unchecked = shapes.seen - set(CONV5_SHAPES.values())
     print(f"conv5 launch shapes on the main path: {sorted(shapes.seen)}; all checked "
           f"against the plain version in phase 3: {not unchecked}")
     if unchecked:
         fail(f"conv5 launched at shapes phase 3 did not check: {sorted(unchecked)}")
 
-    # 7. numbers
+    # 8. beta_maps on the card
+    betas = drive_beta_maps()
+
+    # 9. numbers
     kernel = {
         "name": "conv5", "route": "cuda",
         "source": "vaegam_tpu_torch/ops/csrc/conv5.cu",
         "replaces": "vaegam_tpu/ops/pallas_conv.py:50",
         "launches": cli_launches["cli_fp32"],
-        "launches_by_path": dict(train_step=step_launches, **cli_launches),
+        "launches_by_path": dict(train_step=step_launches, **cli_launches,
+                                 oracle=oracle_launches),
         "max_abs_err": err,
         "ms": timing["ms"], "plain_ms": timing["plain_ms"], "bound_ms": timing["bound_ms"],
         "bound_by": timing["bound_by"], "library_ms": timing["library_ms"],
@@ -1007,8 +1195,11 @@ def main(argv=None) -> int:
                       "batch": BATCH, "steps": TIMED_STEPS, "peak_mem_gib": peak_gib}))
     print(json.dumps({"cli": cli}))
     print(json.dumps({"outputs": outputs}))
+    print(json.dumps({"oracle": dict(oracle, conv5_launches=oracle_launches,
+                                     phase_s=oracle_s)}))
+    print(json.dumps({"beta_maps": betas}))
     print(smi)
-    # 8. the last line
+    # 10. the last line
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

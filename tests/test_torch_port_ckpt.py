@@ -251,3 +251,65 @@ def test_optimizer_structure_mismatch_restarts_adam(tmp_path, capsys):
     assert all(float(m.abs().max()) == 0 for _, m in tree_items(other.opt_state["mu"]))
     for (path_, a), (_, b) in zip(tree_items(other.params), tree_items(t.params)):
         assert torch.equal(a, b), path_
+
+
+def _roundtrip_through_jax(tmp_path, port_cfg, jax_cfg, reader_cfg):
+    """The port trains one epoch under `port_cfg` and saves; a JAX Trainer
+    under `jax_cfg` loads that checkpoint and saves it again; a port
+    Trainer under `reader_cfg` loads the JAX one.  Returns (writer, JAX
+    trainer, reader)."""
+    t = _port_trainer(tmp_path, config=VAEGAMConfig(**dict(THIN, **port_cfg)))
+    t.train_epoch(_port_loader())
+    path = str(tmp_path / "port.tar")
+    t.save_state(path)
+    jt = JaxTrainer(JaxConfig(**dict(THIN, **jax_cfg)), XU_RANGES, None,
+                    save_dir=str(tmp_path), enable_tb=False)
+    jt.load_state(path)
+    want_p, _ = params_to_jax(t.params, t.consts, t.config)
+    _leaves_equal(to_np(jt.params), want_p, "params")
+    _leaves_equal(jax.tree_util.tree_leaves(to_np(jt.opt_state)), t._opt_state_to_jax(),
+                  "optimizer")
+    back_path = str(tmp_path / "jax.tar")
+    jt.save_state(back_path)
+    reader = _port_trainer(tmp_path, seed=5, config=VAEGAMConfig(**dict(THIN, **reader_cfg)))
+    reader.load_state(back_path)
+    for (path_, a), (_, b) in zip(tree_items(reader.params), tree_items(t.params)):
+        assert a.dtype == b.dtype and torch.equal(a, b), path_
+    for k in ("mu", "nu"):
+        for (path_, a), (_, b) in zip(tree_items(reader.opt_state[k]),
+                                      tree_items(t.opt_state[k])):
+            assert a.dtype == b.dtype and torch.equal(a, b), f"{k} {path_}"
+    return t, jt, reader
+
+
+@pytest.mark.parametrize("reader_cholesky", [True, False], ids=["cholesky", "raw"])
+def test_cholesky_checkpoint_both_ways(tmp_path, reader_cholesky):
+    """qu_S_raw crosses both ways with equal params and Adam moments, bit for
+    bit.  The checkpoint's parameterization wins over the config's, as in
+    the JAX Trainer (its params are taken as saved and Adam's state is
+    shaped from them): a JAX Trainer built without qu_s_cholesky and a port
+    Trainer with either setting hold qu_S_raw after loading, and the
+    port's trains on from it."""
+    _, jt, reader = _roundtrip_through_jax(tmp_path, {"qu_s_cholesky": True}, {},
+                                           {"qu_s_cholesky": reader_cholesky})
+    assert "qu_S_raw" in jt.params["gp"] and "qu_S" not in jt.params["gp"]
+    assert "qu_S_raw" in reader.params["gp"] and "qu_S" not in reader.params["gp"]
+    assert int(reader.opt_state["count"]) == 2
+    assert np.isfinite(reader.train_epoch(_port_loader()))
+    assert int(reader.opt_state["count"]) == 4
+
+
+def test_x64_epsilon_checkpoint_both_ways(tmp_path):
+    """A float64 epsilon and its float64 Adam moments stay float64 and equal
+    through the port's checkpoint into the JAX Trainer (under x64) and
+    through the JAX Trainer's checkpoint back into the port."""
+    with jax.enable_x64(True):
+        _, jt, reader = _roundtrip_through_jax(tmp_path, {"x64_epsilon": True},
+                                               {"x64_epsilon": True}, {"x64_epsilon": True})
+        assert jt.params["epsilon"].dtype == np.float64
+        adam = jt.opt_state.inner_state[0]
+        assert adam.mu["epsilon"].dtype == adam.nu["epsilon"].dtype == np.float64
+        assert jt.params["enc"]["conv1"]["w"].dtype == np.float32
+    assert reader.params["epsilon"].dtype == torch.float64
+    assert reader.opt_state["nu"]["epsilon"].dtype == torch.float64
+    assert float(reader.opt_state["nu"]["epsilon"].abs().max()) > 0

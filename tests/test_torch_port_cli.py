@@ -135,12 +135,26 @@ def test_cli_streaming_fallback_and_bf16(study, tmp_path, monkeypatch, capsys):
     assert np.isfinite(t.loss["train"][0]) and np.isfinite(t.loss["test"][0])
 
 
+def test_cli_trains_cholesky_and_x64_epsilon_on_the_cpu(study, tmp_path):
+    """--qu_s_cholesky --x64_epsilon: the model holds qu_S_raw and a float64
+    epsilon (and float64 Adam moments for it), the epoch's loss is finite,
+    epsilon moved, and the checkpoint keeps both."""
+    t, _ = main(_argv(study, tmp_path, "--epochs", "2", "--test_freq", "1",
+                      "--save_freq", "1", "--qu_s_cholesky", "--x64_epsilon"))
+    assert t.config.qu_s_cholesky and t.config.x64_epsilon
+    assert "qu_S_raw" in t.params["gp"] and "qu_S" not in t.params["gp"]
+    assert t.params["epsilon"].dtype == torch.float64
+    assert t.opt_state["mu"]["epsilon"].dtype == torch.float64
+    assert all(np.isfinite(v) for d in t.loss.values() for v in d.values())
+    assert float((t.params["epsilon"] + np.log(10.0)).abs().max()) > 0
+    saved = load_checkpoint(str(tmp_path / "checkpoint_001.tar"))["params"]
+    assert saved["epsilon"].dtype == np.float64 and "qu_S_raw" in saved["gp"]
+
+
 @pytest.mark.parametrize("extra,item", [
     (("--data_parallel",), "item 10"),
     (("--multihost",), "item 10"),
     (("--epoch_scan",), "item 6"),
-    (("--qu_s_cholesky",), "item 1"),
-    (("--x64_epsilon",), "item 1"),
     (("--stream_dtype", "bfloat16"), "item 5"),
 ])
 def test_cli_refuses_unported_flags_before_any_work(tmp_path, extra, item):

@@ -16,19 +16,23 @@ from torch.overrides import TorchFunctionMode
 import jax
 import jax.numpy as jnp
 
+from vaegam_tpu.models import VAEGAMConfig as JaxConfig, init_model as jax_init
 from vaegam_tpu.models import forward as jax_forward
+from vaegam_tpu.train import Trainer as JaxTrainer
 from vaegam_tpu.models import distributions as jdist
 from vaegam_tpu.models import gp as jgp
 from vaegam_tpu.models.networks import _batch_stat_norm as jax_bsn
 from vaegam_tpu.models.vaegam import _hrf_convolve as jax_hrf_convolve
 from vaegam_tpu.models.vaegam import hrf_kernel as jax_hrf_kernel
+from vaegam_tpu.models.vaegam import resolve_qu_S as jax_resolve_qu_S
 from vaegam_tpu.utils.torch_export import export_layer_state
 
 from vaegam_tpu_torch.models import distributions as tdist
 from vaegam_tpu_torch.models import gp as tgp
 from vaegam_tpu_torch.models import MAP_KEYS, VAEGAMConfig, forward, init_model
 from vaegam_tpu_torch.models.networks import batch_stat_norm
-from vaegam_tpu_torch.models.vaegam import hrf_convolve, hrf_kernel
+from vaegam_tpu_torch.models.vaegam import hrf_convolve, hrf_kernel, resolve_qu_S
+from vaegam_tpu_torch.train import Trainer
 from vaegam_tpu_torch.utils.jax_params import params_from_jax
 from vaegam_tpu_torch.utils.tree import tree_items, tree_map
 
@@ -174,25 +178,93 @@ def test_params_from_jax_matches_reference_export():
 
 
 def test_init_model_structure_matches_jax():
-    jc, pc, params, _, tp, tc = make_model(THIN)
+    """init_model(key=k) is the JAX package's init_model(k) in the port's
+    layout: every uniform-drawn weight and every constant bit for bit, the
+    normal-drawn sa, logstd and qu_m within 3 ulps (rtol 1e-6: JAX's
+    float32 erfinv reads log1p a bit off numpy's now and then); the
+    inducing grids within 1e-6.  Thin model here; the Cholesky
+    parameterization and the reference grid below."""
+    _check_init_matches_jax(THIN)
+
+
+@pytest.mark.parametrize("cfg_kw", [dict(THIN, qu_s_cholesky=True), FULL],
+                         ids=["thin-cholesky", "full"])
+def test_init_model_matches_jax(cfg_kw):
+    _check_init_matches_jax(cfg_kw)
+
+
+def _check_init_matches_jax(cfg_kw):
+    jc, pc = JaxConfig(**cfg_kw), VAEGAMConfig(**cfg_kw)
+    key = jax.random.split(jax.random.PRNGKey(4))[1]
+    params, consts = jax_init(key, jc, [[-2.0, 2.0]] * 6)
+    want, _ = params_from_jax(to_np(params), None, pc, "cpu")
     own, own_c = init_model(pc, [[-2.0, 2.0]] * 6, np.zeros((pc.img_dim, 9)),
-                            seed=3, device="cpu")
-    assert [(k, tuple(v.shape)) for k, v in tree_items(own)] == \
-        [(k, tuple(v.shape)) for k, v in tree_items(tp)]
-    np.testing.assert_array_equal(own["gp"]["qu_S"].numpy(),
-                                  np.tile(2 * np.eye(6), (6, 1, 1)))
-    assert float(own["gp"]["logkvar"].abs().sum()) == 0.0
-    np.testing.assert_allclose(own_c["xu"][0].numpy(), np.linspace(-2, 2, 6), atol=1e-6)
+                            key=np.asarray(key), device="cpu")
+    assert [(k, tuple(v.shape), v.dtype) for k, v in tree_items(own)] == \
+        [(k, tuple(v.shape), v.dtype) for k, v in tree_items(want)]
+    for path, a in tree_items(own):
+        b = dict(tree_items(want))[path]
+        if path in ("gp/sa", "gp/logstd", "gp/qu_m"):
+            np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-6, err_msg=path)
+        else:
+            assert torch.equal(a, b), path
+    np.testing.assert_allclose(own_c["xu"].numpy(), np.asarray(consts["xu"]), atol=1e-6)
     # torch-default bound U(+-1/sqrt(fan_in)): conv1 fan_in = 27
     assert float(own["enc"]["conv1"]["w"].abs().max()) <= 1 / np.sqrt(27)
 
 
-@pytest.mark.parametrize("field,value", [
-    ("conv_pack", (2, 2)), ("qu_s_cholesky", True), ("x64_epsilon", True),
-])
+def test_trainer_init_matches_jax_trainer():
+    """A seed gives the port's Trainer the JAX Trainer's initial weights
+    (its init key is the second half of PRNGKey(seed)'s split)."""
+    xu = [[-2.0, 2.0]] * 6
+    jt = JaxTrainer(JaxConfig(**THIN), xu, enable_tb=False, seed=5)
+    t = Trainer(VAEGAMConfig(**THIN), xu, device="cpu", seed=5)
+    want, _ = params_from_jax(to_np(jt.params), None, t.config, "cpu")
+    for (path, a), (_, b) in zip(tree_items(t.params), tree_items(want)):
+        np.testing.assert_allclose(a.detach().numpy(), b.numpy(), rtol=1e-6, atol=0,
+                                   err_msg=path)
+
+
+@pytest.mark.parametrize("field,value", [("conv_pack", (2, 2))])
 def test_config_fields_not_ported_raise(field, value):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         VAEGAMConfig(**{field: value})
+
+
+def test_qu_s_cholesky_init_matches_jax():
+    """The raw factor is JAX's bit for bit (diag(0.5 log 2) for each of the
+    6 motion GPs, no qu_S) and resolves to 2I: fp32 exp and product, atol
+    1e-6; the port's resolve_qu_S equals JAX's on it bit for bit."""
+    kw = dict(THIN, qu_s_cholesky=True)
+    jc, pc, params, _, tp, _ = make_model(kw)
+    own, _ = init_model(pc, [[-2.0, 2.0]] * 6, seed=3, device="cpu")
+    want = np.asarray(params["gp"]["qu_S_raw"])
+    assert "qu_S" not in own["gp"] and "qu_S" not in tp["gp"]
+    np.testing.assert_array_equal(own["gp"]["qu_S_raw"].numpy(), want)
+    np.testing.assert_array_equal(tp["gp"]["qu_S_raw"].numpy(), want)
+    got = resolve_qu_S(own["gp"]).numpy()
+    np.testing.assert_allclose(got, np.tile(2 * np.eye(6), (6, 1, 1)), atol=1e-6)
+    np.testing.assert_array_equal(got, np.asarray(jax_resolve_qu_S(params["gp"])))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_qu_s_cholesky_resolves_psd(seed):
+    """Any raw values give a symmetric positive-definite qu_S (float64,
+    smallest eigenvalue > 0, symmetric to 1e-12) equal to JAX's (rtol
+    1e-12), and its gradient reaches every lower-triangle entry."""
+    rng = np.random.default_rng(seed)
+    raw = rng.normal(size=(6, 6, 6)) * 2
+    t = torch.tensor(raw, requires_grad=True)
+    got = resolve_qu_S({"qu_S_raw": t})
+    with jax.enable_x64(True):
+        want = np.asarray(jax_resolve_qu_S({"qu_S_raw": jnp.asarray(raw)}))
+    g = got.detach().numpy()
+    np.testing.assert_allclose(g, want, rtol=1e-12, atol=1e-12)
+    np.testing.assert_allclose(g, g.transpose(0, 2, 1), atol=1e-12)
+    assert np.linalg.eigvalsh(g).min() > 0
+    got.sum().backward()
+    lower = np.tril(np.ones((6, 6), bool))
+    assert np.all(t.grad.numpy()[:, lower] != 0) and np.all(t.grad.numpy()[:, ~lower] == 0)
 
 
 # ---------------------------------------------------------------------------
@@ -200,6 +272,8 @@ def test_config_fields_not_ported_raise(field, value):
 # ---------------------------------------------------------------------------
 
 BF16 = (jnp.bfloat16, torch.bfloat16)
+# the correctness oracle's model flags (tools/control_experiment.py)
+ORACLE_FLAGS = dict(qu_s_cholesky=True, fused_norm_stats=True, neural_covariates=False)
 BF16_CASES = {
     "conv": dict(conv_dtype=BF16),
     "enc": dict(enc_conv_dtype=BF16),
@@ -287,10 +361,15 @@ def test_entry_points_need_a_card_or_cpu():
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("deterministic", [True, False], ids=["det", "noise"])
-@pytest.mark.parametrize("cfg_kw,batch", [(THIN, 4), (FULL, 2)], ids=["thin", "full"])
+@pytest.mark.parametrize("cfg_kw,batch", [(THIN, 4), (FULL, 2),
+                                          (dict(THIN, **ORACLE_FLAGS), 4)],
+                         ids=["thin", "full", "thin-cholesky-oracle"])
 def test_forward_parity(cfg_kw, batch, deterministic):
     """Thin model (21x25x21 grid: exercises the decoder crop) at B=4 and the
-    reference grid at B=2; deterministic and with JAX-drawn noise.
+    reference grid at B=2; deterministic and with JAX-drawn noise; the thin
+    model also at the oracle's flags: the Cholesky parameterization of
+    qu_S (qu_S_raw's gradient is one of the leaves), joint decoder norm
+    statistics and no HRF on the task gain.
 
     1. fp32, the packages as they run: tot_loss, elbo, gp_kl, glm_reg at
        rtol 1e-4.

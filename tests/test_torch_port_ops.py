@@ -148,7 +148,10 @@ def test_kernel_library_is_keyed_by_source_hash():
 # chip_smoke.py's CONV5_SHAPES, (B, Ci, D, H, W, Co)
 CHIP_SHAPES = {"main": (32, 16, 8, 10, 6, 16), "odd-batch": (3, 16, 8, 10, 6, 16),
                "mni": (4, 16, 20, 25, 20, 16), "thin": (4, 4, 3, 4, 3, 4),
-               "hw30": (4, 4, 5, 6, 5, 4)}
+               "hw30": (4, 4, 5, 6, 5, 4),
+               # the oracle's last batch: 98 volumes (1 subject) and 294 (3
+               # subjects) at batch 32
+               "oracle-tail": (2, 16, 8, 10, 6, 16), "gate3-tail": (6, 16, 8, 10, 6, 16)}
 
 
 def _tf32(a):
@@ -325,7 +328,11 @@ def test_port_imports_with_jax_blocked():
             "vaegam_tpu_torch.train.checkpoint, vaegam_tpu_torch.cli.train, "
             "vaegam_tpu_torch.outputs, vaegam_tpu_torch.outputs.recons, "
             "vaegam_tpu_torch.outputs.latents, vaegam_tpu_torch.outputs.gp_plots, "
-            "vaegam_tpu_torch.outputs.umap_native, vaegam_tpu_torch.utils.tb\n"
+            "vaegam_tpu_torch.outputs.umap_native, vaegam_tpu_torch.utils.tb, "
+            "vaegam_tpu_torch.utils.signals, vaegam_tpu_torch.cli.preproc, "
+            "vaegam_tpu_torch.cli.add_signal, vaegam_tpu_torch.cli.beta_maps, "
+            "vaegam_tpu_torch.tools, vaegam_tpu_torch.tools.control_experiment, "
+            "vaegam_tpu_torch.tools.oracle_variants, vaegam_tpu_torch.utils.prng\n"
             "assert 'triton' not in sys.modules\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,

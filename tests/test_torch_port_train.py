@@ -206,3 +206,45 @@ def test_trainer_needs_a_card_or_cpu():
         Trainer(VAEGAMConfig(**THIN), XU_RANGES)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         DeviceResidentLoader.from_arrays(np.zeros((2, 3, 3, 3)), np.zeros((2, 8)))
+
+
+def test_x64_epsilon_adam_steps_match_jax():
+    """x64_epsilon on the thin model: epsilon is float64 and every other leaf
+    fp32 on both sides (JAX under enable_x64), 3 steps of value_and_grad +
+    apply_if_finite(adam(1e-3)) against Trainer.train_step with JAX's noise.
+    Losses at rtol 1e-4 (fp32 forwards); epsilon and both of its Adam moments
+    stay float64, epsilon within 1e-8 of JAX's (measured 2.0e-9 after
+    ~3e-3 of movement) and the moments within rtol 1e-4: its gradient,
+    1 - (x - x_rec)^2 exp(2 eps) per voxel, is ~1 at the initial
+    eps = -log 10, so the fp32 rounding of the forward moves it by ~1e-7
+    relative and Adam's normalized step by less."""
+    kw = dict(THIN, x64_epsilon=True)
+    covs, x = make_batch(THIN["img_shape"], 4)
+    keys = jax.random.split(jax.random.PRNGKey(8), 3)
+    noises = [torch_tensors(*jax_noise(k, 4, THIN["num_latents"])) for k in keys]
+    tx = _tx(0.0)
+    with jax.enable_x64(True):
+        jc, pc, params, consts, tp, tc = make_model(kw)
+        assert params["epsilon"].dtype == jnp.float64
+        trainer = Trainer(pc, device="cpu", params=tp, consts=tc)
+        state = tx.init(params)
+        for key, noise in zip(keys, noises):
+            (jl, _), g = jax.value_and_grad(jax_forward, has_aux=True)(
+                params, consts, key, jnp.asarray(covs), jnp.asarray(x), jc)
+            updates, state = tx.update(g, state, params)
+            params = optax.apply_updates(params, updates)
+            tl, _ = trainer.train_step(*torch_tensors(covs, x), noise=noise)
+            np.testing.assert_allclose(float(tl), float(jl), rtol=1e-4)
+        adam = _adam_state(state)
+        want = {k: np.asarray(v["epsilon"]) for k, v in
+                (("param", params), ("mu", adam.mu), ("nu", adam.nu))}
+    got = {"param": trainer.params["epsilon"], "mu": trainer.opt_state["mu"]["epsilon"],
+           "nu": trainer.opt_state["nu"]["epsilon"]}
+    for k, t in got.items():
+        assert t.dtype == torch.float64 and want[k].dtype == np.float64, k
+    assert trainer.params["enc"]["conv1"]["w"].dtype == torch.float32
+    np.testing.assert_allclose(got["param"].detach().numpy(), want["param"], rtol=0, atol=1e-8)
+    for k in ("mu", "nu"):
+        np.testing.assert_allclose(got[k].numpy(), want[k], rtol=1e-4, err_msg=k)
+    assert float((got["param"] + np.log(10.0)).abs().min()) > 2e-3   # it moved
+

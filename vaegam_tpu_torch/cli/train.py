@@ -13,8 +13,7 @@ from a checkpoint, ``--eval_batch_size`` widens its batches), and an
 optional torch.profiler trace.
 
 Not ported yet, and refused before any work when set away from their
-defaults: data parallelism, ``--epoch_scan``, ``--qu_s_cholesky``,
-``--x64_epsilon`` and ``--stream_dtype``.
+defaults: data parallelism, ``--epoch_scan`` and ``--stream_dtype``.
 
     python -m vaegam_tpu_torch.cli.train --train_csv T --test_csv E \\
         --glm_maps G --save_dir S --epochs N --batch-size 32
@@ -42,8 +41,6 @@ _NOT_YET = (
     ("data_parallel", False, "data parallel, ROADMAP module item 10"),
     ("multihost", False, "data parallel, ROADMAP module item 10"),
     ("epoch_scan", False, "whole-epoch replay, ROADMAP module item 6"),
-    ("qu_s_cholesky", False, "opt-in paths of ROADMAP module item 1"),
-    ("x64_epsilon", False, "opt-in paths of ROADMAP module item 1"),
     ("stream_dtype", "float32", "prefetch loader, ROADMAP module item 5"),
 )
 
@@ -111,7 +108,7 @@ def build_parser():
                         help="Multi-host training (not ported yet).")
     parser.add_argument("--qu_s_cholesky", type=str2bool, nargs="?",
                         const=True, default=False,
-                        help="Parameterize each GP posterior covariance as L L^T (not ported yet).")
+                        help="Parameterize each GP posterior covariance as L L^T (PSD by construction).")
     parser.add_argument("--skip_nonfinite_updates", type=str2bool, nargs="?",
                         const=True, default=True,
                         help="Skip optimizer updates whose gradients contain inf/NaN (the regime where the reference crashes); healthy-step numerics unchanged.")
@@ -135,7 +132,7 @@ def build_parser():
                         help="Batch width for the post-training output stage (latent projection + volume reconstruction). 0 (default) reuses --batch-size (batch-stat norms make outputs batch-size-dependent). N>0 widens the eval forwards; capped so two 10-map output blocks fit in 1.5 GiB.")
     parser.add_argument("--x64_epsilon", type=str2bool, nargs="?", const=True,
                         default=False,
-                        help="Float64 epsilon like the reference (not ported yet).")
+                        help="Store epsilon in float64 and update it in float64, like the reference.")
     parser.add_argument("--epoch_scan", type=str2bool, nargs="?", const=True,
                         default=False,
                         help="One dispatch per epoch segment (not ported yet).")
@@ -200,6 +197,8 @@ def main(argv=None):
         glm_reg_scale=args.glm_reg_scale,
         neural_covariates=args.neural_covariates,
         conv_dtype=(torch.bfloat16 if args.conv_dtype == "bfloat16" else None),
+        qu_s_cholesky=args.qu_s_cholesky,
+        x64_epsilon=args.x64_epsilon,
         fused_norm_stats=args.fused_norm_stats,
     )
     glm_maps = None

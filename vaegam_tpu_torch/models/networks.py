@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.conv5 import conv5
+from ..utils import prng
 
 _BN_EPS = 1e-5
 
@@ -67,73 +68,77 @@ def decoder_seed_shape(img_shape) -> tuple:
 
 
 # ---------------------------------------------------------------------------
-# init (torch-default uniform bounds U(+-1/sqrt(fan_in)) for weight and bias)
+# init: torch-default uniform bounds U(+-1/sqrt(fan_in)) for weight and bias,
+# drawn with JAX's PRNG in the JAX package's layout and key order
+# (vaegam_tpu/models/networks.py); utils.jax_params.params_from_jax maps
+# the trees to the port's layout
 # ---------------------------------------------------------------------------
 
-def _uniform(gen, shape, bound, device):
-    u = torch.rand(shape, generator=gen, device=device, dtype=torch.float32)
-    return (2.0 * u - 1.0) * bound
-
-
-def _conv_init(gen, wshape, fan_in, n_out, device):
+def _conv_init(key, kshape, fan_in):
+    """kshape: (D, H, W, I, O), the JAX layout."""
+    k_w, k_b = prng.split(key)
     bound = 1.0 / np.sqrt(fan_in)
-    return {"w": _uniform(gen, wshape, bound, device),
-            "b": _uniform(gen, (n_out,), bound, device)}
+    return {"w": prng.uniform(k_w, kshape, -bound, bound),
+            "b": prng.uniform(k_b, (kshape[-1],), -bound, bound)}
 
 
-def _linear_init(gen, in_f, out_f, device):
+def _linear_init(key, in_f, out_f):
+    k_w, k_b = prng.split(key)
     bound = 1.0 / np.sqrt(in_f)
-    return {"w": _uniform(gen, (out_f, in_f), bound, device),
-            "b": _uniform(gen, (out_f,), bound, device)}
+    return {"w": prng.uniform(k_w, (in_f, out_f), -bound, bound),
+            "b": prng.uniform(k_b, (out_f,), -bound, bound)}
 
 
-def _bn_init(ch, device):
-    return {"scale": torch.ones(ch, device=device),
-            "shift": torch.zeros(ch, device=device)}
+def _bn_init(ch):
+    return {"scale": np.ones(ch, np.float32), "shift": np.zeros(ch, np.float32)}
 
 
-def init_encoder(gen, nf, num_latents, img_shape, device):
+def init_encoder(key, nf, num_latents, img_shape):
+    """The encoder's parameters (numpy, JAX layout) from a JAX PRNG key."""
+    ks = prng.split(key, 13)
     eo = encoder_out_shape(img_shape)
     flat = 2 * nf * eo[0] * eo[1] * eo[2]
     c = 2 * nf
     return {
-        "conv1": _conv_init(gen, (nf, 1, 3, 3, 3), 27, nf, device),
-        "conv2": _conv_init(gen, (nf, nf, 3, 3, 3), nf * 27, nf, device),
-        "conv3": _conv_init(gen, (c, nf, 3, 3, 3), nf * 27, c, device),
-        "conv4": _conv_init(gen, (c, c, 3, 3, 3), c * 27, c, device),
-        "conv5": _conv_init(gen, (c, c, 3, 3, 3), c * 27, c, device),
-        "bn1": _bn_init(1, device),
-        "bn3": _bn_init(nf, device),
-        "bn5": _bn_init(c, device),
-        "fc1": _linear_init(gen, flat, 200, device),
-        "fc2": _linear_init(gen, 200, 100, device),
-        "fc31": _linear_init(gen, 100, 50, device),
-        "fc32": _linear_init(gen, 100, 50, device),
-        "fc33": _linear_init(gen, 100, 50, device),
-        "fc41": _linear_init(gen, 50, num_latents, device),
-        "fc42": _linear_init(gen, 50, num_latents, device),
-        "fc43": _linear_init(gen, 50, num_latents, device),
+        "conv1": _conv_init(ks[0], (3, 3, 3, 1, nf), 27),
+        "conv2": _conv_init(ks[1], (3, 3, 3, nf, nf), nf * 27),
+        "conv3": _conv_init(ks[2], (3, 3, 3, nf, c), nf * 27),
+        "conv4": _conv_init(ks[3], (3, 3, 3, c, c), c * 27),
+        "conv5": _conv_init(ks[4], (3, 3, 3, c, c), c * 27),
+        "bn1": _bn_init(1),
+        "bn3": _bn_init(nf),
+        "bn5": _bn_init(c),
+        "fc1": _linear_init(ks[5], flat, 200),
+        "fc2": _linear_init(ks[6], 200, 100),
+        "fc31": _linear_init(ks[7], 100, 50),
+        "fc32": _linear_init(ks[8], 100, 50),
+        "fc33": _linear_init(ks[9], 100, 50),
+        "fc41": _linear_init(ks[10], 50, num_latents),
+        "fc42": _linear_init(ks[11], 50, num_latents),
+        "fc43": _linear_init(ks[12], 50, num_latents),
     }
 
 
-def init_decoder(gen, nf, z_dim, img_shape, device):
+def init_decoder(key, nf, z_dim, img_shape):
+    """The decoder's parameters (numpy, JAX layout) from a JAX PRNG key."""
+    ks = prng.split(key, 9)
     seed, _ = decoder_seed_shape(img_shape)
     c = 2 * nf
     seed_flat = c * seed[0] * seed[1] * seed[2]
     # ConvTranspose3d fan_in in torch is out_ch * prod(kernel)
     return {
-        "fc5": _linear_init(gen, z_dim, 50, device),
-        "fc6": _linear_init(gen, 50, 100, device),
-        "fc7": _linear_init(gen, 100, 200, device),
-        "fc8": _linear_init(gen, 200, seed_flat, device),
-        "convt1": _conv_init(gen, (c, c, 3, 3, 3), c * 27, c, device),
-        "convt2": _conv_init(gen, (c, c, 3, 3, 3), c * 27, c, device),
-        "convt3": _conv_init(gen, (c, nf, 3, 3, 3), nf * 27, nf, device),
-        "convt4": _conv_init(gen, (nf, nf, 5, 3, 3), nf * 45, nf, device),
-        "convt5": _conv_init(gen, (nf, 1, 3, 3, 3), 27, 1, device),
-        "bnt1": _bn_init(c, device),
-        "bnt3": _bn_init(c, device),
-        "bnt5": _bn_init(nf, device),
+        "fc5": _linear_init(ks[0], z_dim, 50),
+        "fc6": _linear_init(ks[1], 50, 100),
+        "fc7": _linear_init(ks[2], 100, 200),
+        "fc8": _linear_init(ks[3], 200, seed_flat),
+        "convt1": _conv_init(ks[4], (3, 3, 3, c, c), c * 27),
+        "convt2": _conv_init(ks[5], (3, 3, 3, c, c), c * 27),
+        "convt3": _conv_init(ks[6], (3, 3, 3, c, nf), nf * 27),
+        "convt4": _conv_init(ks[7], (5, 3, 3, nf, nf), nf * 45),
+        "convt5": _conv_init(ks[8], (3, 3, 3, nf, 1), 27),
+        "bnt1": _bn_init(c),
+        "bnt3": _bn_init(c),
+        "bnt5": _bn_init(nf),
     }
 
 

@@ -7,8 +7,10 @@ with the same math and the same implementation choices:
   * the 6 motion-covariate GP posteriors are one batched evaluation;
   * the per-covariate B x B gain samples are one batched Cholesky;
   * the GLM regularizer's sum of distances is taken in closed form.
-Random draws enter as explicit tensors (``noise``) or come from an explicit
-``torch.Generator``; parameters live in one nested dict of tensors.
+The forward's random draws enter as explicit tensors (``noise``) or come
+from an explicit ``torch.Generator``; the initial parameters are the JAX
+package's for the same PRNG key; parameters live in one nested dict of
+tensors.
 
 Reference quirks kept on purpose: the global d-floor, the HRF convolution
 over the BATCH axis, GLM columns 1..8 of the CSV read with its index column.
@@ -25,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from .._device import resolve_device
+from ..utils import prng
 from ..utils.signals import hrf
 from . import gp as gp_mod
 from .distributions import (
@@ -48,12 +51,10 @@ MOTION_SLICE = slice(1, 7)  # the 6 motion covariates within COVARIATE_KEYS
 TR_SECONDS = 1.4
 HRF_WINDOW_SECONDS = 20.0
 
-# fields of the JAX config this slice does not implement yet, with the
+# fields of the JAX config this port does not implement yet, with the
 # ROADMAP module item that ports them
 _NOT_YET = {
     "conv_pack": "lane-packed convs, ROADMAP module item 11",
-    "qu_s_cholesky": "opt-in paths of ROADMAP module item 1",
-    "x64_epsilon": "opt-in paths of ROADMAP module item 1",
 }
 
 
@@ -67,7 +68,10 @@ class VAEGAMConfig:
     a dtype) and ``dec_fp32_final`` keeps the decoder's last conv in fp32.
     ``conv5_kernel`` (JAX: ``pallas_conv5``) routes the encoder's fp32 conv5
     through the hand-written CUDA kernel; it defaults to on, since the JAX
-    default of off was a TPU measurement.
+    default of off was a TPU measurement.  ``qu_s_cholesky`` parameterizes
+    each GP posterior covariance as L L^T (``gp["qu_S_raw"]``);
+    ``x64_epsilon`` stores epsilon in float64 (Adam updates it in float64,
+    the log-likelihood reads it as float32), as the reference does.
     """
 
     nf: int = 8
@@ -132,47 +136,52 @@ def init_model(
     config: VAEGAMConfig,
     xu_ranges,
     glm_maps: Optional[np.ndarray] = None,
-    generator: Optional[torch.Generator] = None,
     seed: int = 0,
+    key: Optional[np.ndarray] = None,
     device=None,
 ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
     """Build (params, consts): nested dicts of tensors on `device`.
+
+    The parameters are the JAX package's ``init_model`` for the same key:
+    drawn with JAX's PRNG (``utils.prng``, in numpy) in its layout and key
+    order, then mapped to the port's layout by ``params_from_jax``.
 
     Args:
       xu_ranges: 6 [lo, hi] ranges for the inducing-point grids.
       glm_maps:  optional (img_dim, num_covariates+1) array, the reference's
                  CSV read with its index column; None disables the GLM term.
-      generator: a torch.Generator on `device`; default one seeded by `seed`.
+      key:       a JAX PRNG key (uint32 pair); default ``PRNGKey(seed)``.
       device:    the CUDA device unless given (``"cpu"`` for the CPU).
     """
+    from ..utils.jax_params import params_from_jax
+
     device = resolve_device(device)
-    gen = generator
-    if gen is None:
-        gen = torch.Generator(device=device)
-        gen.manual_seed(seed)
+    key = prng.prng_key(seed) if key is None else key
+    k_enc, k_dec, k_sa, k_ls, k_qm = prng.split(key, 5)
     n_cov, p, n_mot = config.num_covariates, config.num_inducing_pts, 6
-
-    def randn(*shape):
-        return torch.randn(shape, generator=gen, device=device)
-
-    enc = init_encoder(gen, config.nf, config.num_latents, config.img_shape, device)
-    dec = init_decoder(gen, config.nf, config.z_dim, config.img_shape, device)
     gp_bank = {
         # linear gain for ALL covariates: sa ~ N(1,1), logstd ~ N(0,1)
-        "sa": 1.0 + randn(n_cov),
-        "logstd": randn(n_cov),
+        "sa": np.float32(1.0) + prng.normal(k_sa, (n_cov,)),
+        "logstd": prng.normal(k_ls, (n_cov,)),
         # sparse-GP bank for the 6 motion covariates
-        "qu_m": randn(n_mot, p),
-        "logkvar": torch.zeros(n_mot, device=device),
-        "log_ls": torch.zeros(n_mot, device=device),
-        "qu_S": (2.0 * torch.eye(p, device=device)).repeat(n_mot, 1, 1),
+        "qu_m": prng.normal(k_qm, (n_mot, p)),
+        "logkvar": np.zeros(n_mot, np.float32),
+        "log_ls": np.zeros(n_mot, np.float32),
     }
-    params = {
-        "enc": enc,
-        "dec": dec,
-        "epsilon": torch.full(config.img_shape, -math.log(10.0), device=device),
+    if config.qu_s_cholesky:
+        # raw factor with an exp diagonal, L = sqrt(2) I: L L^T = 2 I
+        gp_bank["qu_S_raw"] = np.tile(
+            np.diag(np.full(p, 0.5 * math.log(2.0), np.float32)), (n_mot, 1, 1))
+    else:
+        gp_bank["qu_S"] = np.tile(2.0 * np.eye(p, dtype=np.float32), (n_mot, 1, 1))
+    tree = {
+        "enc": init_encoder(k_enc, config.nf, config.num_latents, config.img_shape),
+        "dec": init_decoder(k_dec, config.nf, config.z_dim, config.img_shape),
+        "epsilon": np.full(config.img_shape, -math.log(10.0),
+                           np.float64 if config.x64_epsilon else np.float32),
         "gp": gp_bank,
     }
+    params, _ = params_from_jax(tree, None, config, device)
     xu = torch.stack([
         torch.linspace(float(lo), float(hi), p, device=device)
         for lo, hi in xu_ranges
@@ -194,11 +203,19 @@ def gp_transforms(gp_params, config: VAEGAMConfig):
 
 
 def resolve_qu_S(gp_params) -> torch.Tensor:
-    """The GP posterior covariance stack (6, P, P), raw-matrix parameterization."""
-    if "qu_S" not in gp_params:
-        raise NotImplementedError(
-            f"qu_S_raw is not ported yet ({_NOT_YET['qu_s_cholesky']})")
-    return gp_params["qu_S"]
+    """The GP posterior covariance stack (6, P, P).
+
+    The raw-matrix parameterization returns ``qu_S`` as it is; the Cholesky
+    one returns L L^T with L = tril(raw, -1) + diag(exp(diag(raw))), PSD by
+    construction.  The key present decides, as in the JAX package, so a
+    checkpoint of either parameterization runs under either config.
+    """
+    if "qu_S" in gp_params:
+        return gp_params["qu_S"]
+    raw = gp_params["qu_S_raw"]
+    chol = torch.tril(raw, -1) + torch.diag_embed(
+        torch.exp(torch.diagonal(raw, dim1=-2, dim2=-1)))
+    return torch.einsum("cij,ckj->cik", chol, chol)
 
 
 def hrf_convolve(gains: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
@@ -325,7 +342,8 @@ def forward(
 
     # --- ELBO ----------------------------------------------------------------
     kl_z = lowrank_mvn_kl_to_std_normal(mu, u, d)                 # (B,)
-    obs_scale = torch.exp(-params["epsilon"]).reshape(-1)         # (D,)
+    # a float64 epsilon (x64_epsilon) is read as float32, as the reference does
+    obs_scale = torch.exp(-params["epsilon"].to(x.dtype)).reshape(-1)  # (D,)
     log_prob = torch.sum(
         normal_log_prob(x.reshape(b, -1), x_rec, obs_scale[None, :]), dim=-1
     )

@@ -37,7 +37,7 @@ import torch
 from .._device import configure_cuda_backends, resolve_device
 from ..models.vaegam import (COVARIATE_KEYS, VAEGAMConfig, forward, init_model,
                              resolve_qu_S)
-from ..utils import tb
+from ..utils import prng, tb
 from ..utils.jax_params import params_from_jax, params_to_jax
 from ..utils.tree import tree_items, tree_map
 from .checkpoint import (checkpoint_filename, flatten, load_checkpoint,
@@ -52,7 +52,9 @@ class Trainer:
 
     ``params``/``consts`` may be handed in (e.g. carried over from the JAX
     package with ``utils.jax_params.params_from_jax``); otherwise they are
-    initialized from ``seed``.  Runs on the CUDA device unless
+    initialized from ``seed`` as the JAX Trainer initializes them (the same
+    weights); the forward's noise comes from a torch generator seeded
+    with ``seed``.  Runs on the CUDA device unless
     ``device="cpu"``; on the card it turns TF32 off for the fp32 path and
     cuDNN's algorithm search on.
 
@@ -99,8 +101,10 @@ class Trainer:
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
         if params is None:
+            # the JAX Trainer's init key: the second half of PRNGKey(seed)'s
+            # split, so a seed gives both packages the same initial weights
             params, consts = init_model(config, xu_ranges, glm_maps,
-                                        generator=self.generator,
+                                        key=prng.split(prng.prng_key(seed))[1],
                                         device=self.device)
         self.consts = consts
         self._set_params(params)
@@ -180,11 +184,15 @@ class Trainer:
             grads = [torch.where(trigger, g, (g / g_norm) * self.grad_clip)
                      for g in grads]
         count_inc = st["count"] + 1
-        # bias corrections in the parameters' precision, as optax computes them
-        c = count_inc.to(self._leaves[0].dtype)
-        bc1 = 1.0 - torch.pow(torch.full_like(c, _B1), c)
-        bc2 = 1.0 - torch.pow(torch.full_like(c, _B2), c)
+        # bias corrections in each parameter's precision (a float64 epsilon
+        # under x64_epsilon), as optax computes them
+        bcs = {}
+        for dt in {p.dtype for p in self._leaves}:
+            c = count_inc.to(dt)
+            bcs[dt] = (1.0 - torch.pow(torch.full_like(c, _B1), c),
+                       1.0 - torch.pow(torch.full_like(c, _B2), c))
         for p, g, m, v in zip(self._leaves, grads, self._mu, self._nu):
+            bc1, bc2 = bcs[p.dtype]
             m_new = (1 - _B1) * g + _B1 * m
             v_new = (1 - _B2) * (g * g) + _B2 * v
             upd = -self.lr * ((m_new / bc1) / (torch.sqrt(v_new / bc2) + _EPS))

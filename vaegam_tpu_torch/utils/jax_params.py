@@ -7,7 +7,10 @@ Its own copy of the layout logic of ``vaegam_tpu/utils/torch_export.py``
   * Linear weight (in, out)                 -> (out, in)
   * encoder fc1 / decoder fc8: JAX flattens conv features channel-minor,
     torch channel-major; permute fc1's input columns and fc8's output rows
-  * BatchNorm scale/shift, epsilon and the stacked GP bank carry over as is.
+  * BatchNorm scale/shift, epsilon and the stacked GP bank carry over as is
+    (``qu_S`` or the Cholesky parameterization's ``qu_S_raw``, whichever
+    the tree holds); a float64 epsilon (``x64_epsilon``) stays float64,
+    every other leaf is float32.
 Every mapping is a permutation or a flip, so the same function also maps a
 JAX GRADIENT tree (or Adam moment tree) onto the port's layout, and
 ``params_to_jax`` inverts it exactly (checkpoints are written in JAX layout).
@@ -29,6 +32,12 @@ _CONVTS = ("convt1", "convt2", "convt3", "convt4", "convt5")
 
 def _np(a) -> np.ndarray:
     return np.asarray(a, np.float32)
+
+
+def _epsilon(a) -> np.ndarray:
+    """float32, or float64 where the tree holds a float64 epsilon."""
+    a = a.detach().cpu().numpy() if torch.is_tensor(a) else np.asarray(a)
+    return np.asarray(a, np.float64 if a.dtype == np.float64 else np.float32)
 
 
 def _conv_w(w) -> np.ndarray:
@@ -107,14 +116,11 @@ def params_from_jax(params_np: Dict[str, Any], consts_np: Optional[Dict[str, Any
     ``consts_np`` may be None (then None is returned in its place), which is
     how a JAX gradient tree is mapped.
     """
-    if "qu_S" not in params_np["gp"]:
-        raise NotImplementedError(
-            "qu_S_raw (qu_s_cholesky) is not ported yet (ROADMAP module item 1)")
     c = 2 * config.nf
     tree = {
         "enc": _convert_net(params_np["enc"], c),
         "dec": _convert_net(params_np["dec"], c),
-        "epsilon": _np(params_np["epsilon"]),
+        "epsilon": _epsilon(params_np["epsilon"]),
         "gp": {k: _np(v) for k, v in params_np["gp"].items()},
     }
 
@@ -164,11 +170,11 @@ def params_to_jax(params: Dict[str, Any], consts: Optional[Dict[str, Any]],
             t.detach().cpu().numpy() if torch.is_tensor(t) else t, np.float32)
 
     c = 2 * config.nf
-    p = tree_map(host, params)
+    p = tree_map(host, {k: v for k, v in params.items() if k != "epsilon"})
     tree = {
         "enc": _convert_net_inv(p["enc"], c),
         "dec": _convert_net_inv(p["dec"], c),
-        "epsilon": p["epsilon"],
+        "epsilon": _epsilon(params["epsilon"]),
         "gp": dict(p["gp"]),
     }
     tree = tree_map(np.ascontiguousarray, tree)

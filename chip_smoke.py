@@ -61,12 +61,10 @@ Phases (any failure exits non-zero; nothing is caught to exit 0):
      ``vaegam_tpu_torch.tools.control_experiment.main(["--work_dir", W,
      "--epochs", "900"])`` in this process (1 subject x 98 volumes, full
      width, fp32, GLM regularizer, qu_s_cholesky, fused norm statistics):
-     it must run to its end, exit by its own gate rule (0 when
-     "recovered": true, else 1) with finite metrics, and launch conv5
-     exactly once per train and recon forward (900 x 4 + 4 = 3,604, at
-     B = 32 and 2); its JSON line, its verdict and its seconds by stage are
-     printed.  The verdict is not required: the oracle recovers in about
-     half its runs at its defaults on this card (PERF.md);
+     it must exit 0 with "recovered": true and finite metrics, and launch
+     conv5 exactly once per train and recon forward (900 x 4 + 4 = 3,604,
+     at B = 32 and 2); its JSON line, its verdict and its seconds by stage
+     are printed, and its skips and gain-Cholesky fallbacks beside them;
   8. the beta_maps CLI on a synthetic FSL tree at the reference grid (10
      subjects x 98 volumes, an exact linear model): the float64 host solve
      and the float32 solve on the card, each CSV against the ground truth,
@@ -1006,17 +1004,13 @@ def drive_oracle(conv5_mod):
           f"{result['nonfinite_skips']}, gain-Cholesky fallbacks {result['mvn_fallbacks']}; "
           f"conv5 launches {launches} (want {want} = {ORACLE_EPOCHS} epochs x {steps} "
           f"train forwards + {steps} recon forwards)")
-    # the gate's verdict is reported, not required: at its defaults the
-    # oracle recovers in about half its runs on this card, from the same
-    # weights, data and code (PERF.md §6); the tool must still exit by its
-    # own rule, with finite numbers
-    if rc != (0 if result["recovered"] else 1):
-        fail(f"the oracle exited {rc} with recovered {result['recovered']}")
     numbers = [result[k] for k in ("task_map_mean_inside", "abs_inside", "abs_outside",
                                    "contrast_ratio", "train_seconds")]
     if not np.isfinite(numbers).all() or result["epochs"] != ORACLE_EPOCHS:
         fail(f"the oracle's result is not finite or not {ORACLE_EPOCHS} epochs: {numbers}")
-    print(f"oracle gate: {'recovered' if result['recovered'] else 'NOT recovered'}")
+    if rc != 0 or not result["recovered"]:
+        fail(f"the oracle did not recover the injected signal (exit {rc}, contrast "
+             f"{result['contrast_ratio']}, inside mean {result['task_map_mean_inside']})")
     if launches != want:
         fail("conv5 did not launch once per train and recon forward in the oracle")
     return launches, result, phase_s
@@ -1076,8 +1070,9 @@ def drive_beta_maps():
         want = expected / expected.max(axis=1, keepdims=True)
         # float64: tests/test_beta_maps_cli.py's tolerance.  float32 on the
         # card: a QR solve of a (980, 7) design whose condition number is
-        # ~3 keeps ~6 digits of the max-scaled maps; held at 1e-3 absolute
-        tols = {"float64": (2e-3, 2e-4), "float32": (0.0, 1e-3)}
+        # ~3 keeps ~6 digits of the max-scaled maps (measured 1.8e-6 on the
+        # H100, PERF.md); held at 1e-4 absolute, ~50x that reading
+        tols = {"float64": (2e-3, 2e-4), "float32": (0.0, 1e-4)}
         for dtype, (rtol, atol) in tols.items():
             t0 = time.perf_counter()
             csv = beta_maps.main(["--root_dir", str(root / "feat"), "--output_dir",

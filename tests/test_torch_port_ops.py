@@ -332,7 +332,7 @@ def test_port_imports_with_jax_blocked():
             "vaegam_tpu_torch.utils.signals, vaegam_tpu_torch.cli.preproc, "
             "vaegam_tpu_torch.cli.add_signal, vaegam_tpu_torch.cli.beta_maps, "
             "vaegam_tpu_torch.tools, vaegam_tpu_torch.tools.control_experiment, "
-            "vaegam_tpu_torch.tools.oracle_variants, vaegam_tpu_torch.utils.prng\n"
+            "vaegam_tpu_torch.utils.prng\n"
             "assert 'triton' not in sys.modules\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,

@@ -28,7 +28,6 @@ from vaegam_tpu.utils import signals as jax_signals
 
 from vaegam_tpu_torch.cli import add_signal, beta_maps, preproc
 from vaegam_tpu_torch.tools import control_experiment as ce
-from vaegam_tpu_torch.tools import oracle_variants
 from vaegam_tpu_torch.utils import signals
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -430,19 +429,130 @@ def test_entry_points_need_a_card_or_cpu(tmp_path, feat_tree):  # noqa: F811
     assert not (tmp_path / "never").exists()
 
 
-def test_oracle_variants_runs_each_kind(tmp_path, capsys):
-    """Two runs at once at a small size on the CPU (the default and the
-    TF32 kind, which changes nothing on the CPU): one JSON line each with its epoch-0 trajectory line
-    and the oracle's result; an unknown kind is refused."""
-    rc = oracle_variants.main(["--epochs", "1", "--out", str(tmp_path), "--extra",
-                               f"--device cpu --img_shape {' '.join(map(str, SHAPE))} "
-                               "--n_vols 12 --batch_size 8", "a:1", "b:1:tf32"])
-    assert rc == 0
-    lines = [json.loads(line) for line in capsys.readouterr().out.splitlines()
-             if line.startswith("{")]
-    assert [d["variant"] for d in lines] == ["a", "b"]
-    for d in lines:
-        assert d["exit"] == 0 and d["trajectory"][0].startswith(f"[{d['variant']}] epoch 0 ")
-        assert d["result"]["epochs"] == 1 and d["result"]["device"] == "cpu"
-    with pytest.raises(ValueError, match="kind"):
-        oracle_variants.main(["--out", str(tmp_path), "c:1:tf16"])
+# ---------------------------------------------------------------------------
+# the oracle's training, step by step against the JAX Trainer's
+# ---------------------------------------------------------------------------
+
+TRAJ_EPOCHS = 4
+TRAJ_BATCH = 5   # 12 volumes: steps of 5, 5 and a tail of 2, as 98 at batch 32
+
+
+def test_oracle_training_tracks_jax(tmp_path, monkeypatch):
+    """Four epochs of the oracle's training on its own data at 21x25x21 (12
+    volumes at batch 5: steps of 5, 5 and a tail of 2 in each epoch, as 98
+    volumes at batch 32 end on 2), the thin model (nf=2, 8 latents) at the
+    oracle's flags (GLM regularizer on the ground-truth maps, qu_s_cholesky,
+    fused norm statistics, no neural covariates, the skip rule on): the JAX
+    Trainer and the port's, from the same weights, each through its own
+    device loader and epoch loop, with the JAX Trainer's noise fed to the
+    port step by step.
+
+    Both sides run in float64 (the JAX side as tests/torch_port_common.py
+    lifts it, its gather's float32 cast included).  The inducing grids span
+    the data, so at this grid Kuu's condition number exceeds 1e5 (asserted)
+    and a float32 evaluation of the motion-GP gains is rounding-bound in
+    either package: two float32 runs part within the first steps.  In
+    float64 the batches are the same indices, every step's loss agrees
+    within rtol 1e-9 and every parameter within 1e-6 of its leaf's scale
+    after each epoch, sa_task included, except logkvar: the posterior
+    depends on the kernel variance only through Kqq - A Kuu A^T, which
+    cancels to rounding at this conditioning, and Adam scales that
+    rounding-level gradient up to steps of about lr, so logkvar may differ
+    by up to lr per step.  No step is skipped and no gain Cholesky falls
+    back on either side."""
+    import dataclasses
+
+    import jax
+    import jax.numpy as jnp
+    import vaegam_tpu.train as jax_train
+    import vaegam_tpu.train.loop as jax_loop
+    from torch_port_common import (_JnpFloat32AsFloat64, f64_jax, f64_port, jax_float64,
+                                   jax_noise, to_np)
+    from vaegam_tpu.data import setup_device_loaders as jax_loaders
+    from vaegam_tpu_torch.data import setup_device_loaders as port_loaders
+    from vaegam_tpu_torch.models import VAEGAMConfig as PortConfig
+    from vaegam_tpu_torch.models import gp as port_gp
+    from vaegam_tpu_torch.models.vaegam import gp_transforms
+    from vaegam_tpu_torch.train import Trainer as PortTrainer
+    from vaegam_tpu_torch.utils.jax_params import params_from_jax, params_to_jax
+
+    work = tmp_path / "jax"
+    seen = _trainer_inputs(jax_ce, jax_train, work,
+                           ["--img_shape", *map(str, SHAPE), "--n_vols", str(N_VOLS)],
+                           monkeypatch)
+    monkeypatch.undo()
+    csv = str(next(work.glob("preproc_dset_zscored_*.csv")))
+    thin = dict(nf=2, num_latents=8)
+    jcfg = dataclasses.replace(seen["config"], **thin)
+    pcfg = PortConfig(glm_reg_scale=jcfg.glm_reg_scale, neural_covariates=False,
+                      img_shape=SHAPE, qu_s_cholesky=True, fused_norm_stats=True, **thin)
+    assert jcfg.qu_s_cholesky and jcfg.fused_norm_stats and not jcfg.neural_covariates
+    assert jcfg.glm_reg_scale == 1.0 and seen["kw"]["seed"] == 1
+    monkeypatch.setattr(jax_loop, "jnp", _JnpFloat32AsFloat64())   # the gather's cast
+
+    with jax_float64():
+        jt = jax_train.Trainer(jcfg, seen["xu"], glm_maps=seen["glm"], seed=1,
+                               enable_tb=False)
+        jt.params, jt.consts = f64_jax(to_np(jt.params)), f64_jax(to_np(jt.consts))
+        jt.opt_state = jt._tx_init(jt.params)
+        inner = jt._build_gather_train_step()
+        params, consts = params_from_jax(to_np(jt.params), to_np(jt.consts), pcfg, "cpu")
+        pt = PortTrainer(pcfg, seed=1, enable_tb=False, device="cpu",
+                         params=f64_port(params), consts=f64_port(consts))
+        kvar, ls = gp_transforms(pt.params["gp"], pcfg)
+        xu = pt.consts["xu"]
+        kuu = port_gp.rbf_gram(xu, xu, kvar, ls).detach().numpy()
+        assert min(np.linalg.cond(k) for k in kuu) > 1e5
+        jl = jax_loaders(batch_size=TRAJ_BATCH, train_csv=csv, test_csv=csv, seed=1)
+        pl = port_loaders(batch_size=TRAJ_BATCH, train_csv=csv, test_csv=csv, seed=1,
+                          device="cpu")
+        jl["Shuffled_train"]._covs = jnp.asarray(np.asarray(jl["Shuffled_train"]._covs),
+                                                 jnp.float64)
+
+        steps, fed, port_losses = [], [], []
+
+        def jax_step(params, opt_state, key, vols, covs, idx):
+            _, sub = jax.random.split(key)      # the step's key (loop.py:196-197)
+            draws = jax_noise(sub, len(idx), jcfg.num_latents)
+            out = inner(params, opt_state, key, vols, covs, idx)   # donates key
+            steps.append((np.asarray(idx), draws, float(out[3])))
+            return out
+
+        gather, step = pl["Shuffled_train"].gather, pt.train_step
+
+        def port_gather(sel):
+            fed.append(np.asarray(sel))
+            return tuple(t.double() for t in gather(sel))
+
+        def port_step(covs, x, noise=None):
+            draws = steps[len(port_losses)][1]
+            loss, aux = step(covs, x, noise=tuple(torch.from_numpy(np.array(d)) for d in draws))
+            port_losses.append(float(loss))
+            return loss, aux
+
+        jt._gather_train_step = jax_step
+        pl["Shuffled_train"].gather = port_gather
+        pt.train_step = port_step
+        for _ in range(TRAJ_EPOCHS):
+            want = jt.train_epoch(jl["Shuffled_train"])
+            got = pt.train_epoch(pl["Shuffled_train"])
+            assert [len(i) for i, _, _ in steps[-3:]] == [5, 5, 2]
+            assert len(fed) == len(steps)
+            for (idx, _, _), sel in zip(steps, fed):
+                np.testing.assert_array_equal(sel, idx)
+            np.testing.assert_allclose(port_losses, [l for _, _, l in steps], rtol=1e-9)
+            np.testing.assert_allclose(got, want, rtol=1e-9)
+            mine, _ = params_to_jax(pt.params, None, pcfg)
+            n_steps = len(steps)
+            for path, want_leaf in jax.tree_util.tree_leaves_with_path(to_np(jt.params)):
+                got_leaf = mine
+                for k in path:
+                    got_leaf = got_leaf[k.key]
+                name = jax.tree_util.keystr(path)
+                bound = (n_steps * pt.lr if name == "['gp']['logkvar']"
+                         else 1e-6 * max(1.0, float(np.abs(want_leaf).max())))
+                np.testing.assert_allclose(np.asarray(got_leaf, np.float64), want_leaf,
+                                           rtol=0, atol=bound, err_msg=name)
+    assert len(steps) == 3 * TRAJ_EPOCHS
+    assert int(jt.opt_state.total_notfinite) == int(pt.opt_state["total_notfinite"]) == 0
+    assert jt.mvn_fallbacks == pt.mvn_fallbacks == 0

@@ -26,6 +26,13 @@ Phases (any failure exits non-zero; nothing is caught to exit 0):
      forward.  One deterministic B=4 forward on the card must match the
      same model's CPU forward (plain kernels), on well-conditioned inducing
      grids: tot_loss rtol 1e-4;
+ 4b. a float64 model at the same width (JAX's partial float64: norm
+     statistics and sigmoid in float32; conv5_kernel off) takes one step
+     (forward, backward, Adam) from a host batch of 32 on the card and the
+     same step on the CPU with the same weights and noise: loss within rtol
+     F64_LOSS_RTOL, the gradients (the first Adam moment) within
+     F64_GRAD_SHARE of each leaf's largest entry; then 5 timed steps on the
+     card; conv5 must not launch;
   5. the train CLI on a NIfTI study: a 10-subject study at the reference
      grid (98 volumes a subject, 980 in all, one subject .nii.gz, the rest
      .nii) is written with the port's NIfTI codec, with its design and GLM
@@ -43,8 +50,9 @@ Phases (any failure exits non-zero; nothing is caught to exit 0):
      recon forward); the recon stage is then timed again over the study
      without its pipeline (a blocking copy per batch) and with it, in the
      order synchronous, pipelined, pipelined, synchronous; 1 epoch on the
-     streaming DataLoader (a one-byte cache
-     budget); then 2 epochs of the bf16 recipe (--conv_dtype bfloat16
+     streaming prefetch loader (a one-byte cache budget) on each of the
+     float32 and float16 wires (conv5 once per train and test forward and
+     figure batch); then 2 epochs of the bf16 recipe (--conv_dtype bfloat16
      --fused_norm_stats; no conv5 launch, the figure forward is bf16 too);
   6. a second output-stage run: --from_ckpt checkpoint_002 --recons_only
      --recon_wire_dtype float16 --eval_batch_size 128.  Each output-stage
@@ -57,6 +65,11 @@ Phases (any failure exits non-zero; nothing is caught to exit 0):
      parameters, the UMAP backend (native, its layout on the card); the
      first run's tree is deleted before the second.  The native UMAP on the
      card must pass the JAX package's gates on its two-cluster fixture;
+ 6b. the checkpoint converters: checkpoint_002 exported to the reference's
+     torch format and imported back must give its params bit for bit, and
+     a B=32 fp32 maps forward of the round trip must equal the original's
+     bit for bit on the card, on cuDNN's deterministic algorithms (conv5
+     twice);
   7. the correctness oracle at every default:
      ``vaegam_tpu_torch.tools.control_experiment.main(["--work_dir", W,
      "--epochs", "900"])`` in this process (1 subject x 98 volumes, full
@@ -70,7 +83,7 @@ Phases (any failure exits non-zero; nothing is caught to exit 0):
      and the float32 solve on the card, each CSV against the ground truth,
      each timed;
   9. one JSON line with the kernels' numbers, one with the step time, one
-     with the CLI's numbers, one with the output stage's numbers, one with
+     with the float64 step, one with the CLI's numbers (converters included), one with the output stage's numbers, one with
      the oracle's and one with beta_maps';
  10. as the last line: {"ok": true, "device": {...}}.
 Imports nothing of JAX or of the JAX package.
@@ -904,20 +917,28 @@ def drive_cli(conv5_mod, libs):
         outputs["recon_pipeline_vs_synchronous"] = compare_recon_pipeline(
             r, r_stages["mk_single_volumes"][2][0], design, root / "recon_cmp")
 
-        # the streaming DataLoader: a one-byte cache budget sends the CLI to it
+        # the streaming prefetch loader: a one-byte cache budget sends the CLI
+        # to it, once on the float32 wire and once on the float16 wire
         os.environ["VAEGAM_CACHE_MAX_BYTES"] = "1"
+        stream = {}
         try:
-            st, st_loaders, st_launches, _ = run_cli(conv5_mod, argv(
-                "stream", "--epochs", "1", "--save_freq", "100", "--no_outputs"),
-                "streaming")
+            for wire in ("float32", "float16"):
+                st, st_loaders, st_launches, _ = run_cli(conv5_mod, argv(
+                    f"stream_{wire}", "--epochs", "1", "--save_freq", "100", "--no_outputs",
+                    "--stream_dtype", wire), f"streaming {wire}")
+                loader = st_loaders["Shuffled_train"]
+                kind = type(loader).__name__
+                print(f"CLI streaming ({kind}, {getattr(loader, 'transfer_dtype', None)} "
+                      f"wire): epoch {st.epoch_seconds[0]:.2f} s (the synchronous "
+                      f"DataLoader's was 3.21-3.52 s, PERF.md), conv5 launches {st_launches}")
+                if (kind != "PrefetchLoader" or loader.transfer_dtype != wire
+                        or st_launches != 2 * steps + 1):
+                    fail(f"the streaming run did not take the {wire} prefetch loader "
+                         "through conv5 once per train and test forward and figure batch")
+                stream[wire] = dict(epoch_s=st.epoch_seconds[0], conv5_launches=st_launches)
         finally:
             del os.environ["VAEGAM_CACHE_MAX_BYTES"]
-        kind = type(st_loaders["Shuffled_train"]).__name__
-        print(f"CLI streaming ({kind}): epoch {st.epoch_seconds[0]:.2f} s, conv5 "
-              f"launches {st_launches}")
-        if kind != "DataLoader" or st_launches != 2 * steps + 1:
-            fail("the streaming run did not take the DataLoader through conv5")
-        numbers["stream"] = dict(epoch_s=st.epoch_seconds[0], conv5_launches=st_launches)
+        numbers["stream"] = stream
 
         # the bf16 recipe: conv5 takes cuDNN's bf16 conv, as JAX takes XLA's;
         # the figure forward is bf16 too
@@ -949,12 +970,147 @@ def drive_cli(conv5_mod, libs):
             "figure_batch_s": [t.figure_seconds[e] for e in range(CLI_EPOCHS)]}
         outputs["umap_fixture"] = check_umap_on_card()
         outputs["host_libraries"] = libs
+
+        # the checkpoint converters on checkpoint_002
+        conv_launches, numbers["converters"] = drive_converters(
+            conv5_mod, ckpts[1], loaders["UnShuffled_train"], root / "convert")
     finally:
         shutil.rmtree(root, ignore_errors=True)
     by_path = {"cli_fp32": launches, "cli_resume": r_launches,
-               "cli_stream": st_launches, "cli_bf16": b_launches,
-               "cli_recons_wide_f16": w_launches}
+               "cli_stream_f32": stream["float32"]["conv5_launches"],
+               "cli_stream_f16": stream["float16"]["conv5_launches"],
+               "cli_bf16": b_launches, "cli_recons_wide_f16": w_launches,
+               "converters": conv_launches}
     return by_path, numbers, outputs
+
+
+def drive_converters(conv5_mod, ckpt: Path, loader, out_dir: Path):
+    """Phase 6b: checkpoint_002 exported to the reference's torch format and
+    imported back; the params must come back bit for bit, and a B=32 fp32
+    maps forward of the round-tripped checkpoint must equal the original's
+    bit for bit on the card (cuDNN's deterministic algorithms), through
+    conv5.  Returns (conv5 launches, the
+    phase's numbers)."""
+    from vaegam_tpu_torch.cli import export_torch_ckpt, import_torch_ckpt
+    from vaegam_tpu_torch.models import VAEGAMConfig, forward
+    from vaegam_tpu_torch.train import load_checkpoint
+    from vaegam_tpu_torch.utils.jax_params import params_from_jax
+    from vaegam_tpu_torch.utils.tree import tree_items
+
+    out_dir.mkdir()
+    ref, back = out_dir / "reference.tar", out_dir / "checkpoint_002.tar"
+    t0 = time.perf_counter()
+    export_torch_ckpt.convert(str(ckpt), str(ref))
+    t1 = time.perf_counter()
+    import_torch_ckpt.convert(str(ref), str(back), nf=8)
+    t2 = time.perf_counter()
+    orig, circ = load_checkpoint(str(ckpt)), load_checkpoint(str(back))
+    a, b = tree_items(orig["params"]), tree_items(circ["params"])
+    same = [p for p, _ in a] == [p for p, _ in b] and all(
+        x.dtype == y.dtype and np.array_equal(x, y) for (_, x), (_, y) in zip(a, b))
+    config = VAEGAMConfig()
+    covs, x = loader.gather(np.arange(BATCH))
+    torch.cuda.synchronize()
+    conv5_mod.conv5.launches = 0
+    maps = []
+    # two forwards of one model on the card agree bit for bit only on cuDNN's
+    # deterministic algorithms: the transposed convs' fastest data-gradient
+    # kernels accumulate with atomics (ROADMAP F2)
+    torch.backends.cudnn.deterministic = True
+    try:
+        for state in (orig, circ):
+            params, consts = params_from_jax(state["params"], state["consts"], config,
+                                             "cuda")
+            with torch.no_grad():
+                maps.append(forward(params, consts, covs, x, config, deterministic=True,
+                                    return_maps=True)[1]["maps"])
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    launches = conv5_mod.conv5.launches
+    equal = all(torch.equal(maps[0][k], maps[1][k]) for k in maps[0])
+    print(f"converters: export {t1 - t0:.2f} s ({ref.stat().st_size / 2**20:.1f} MiB), "
+          f"import {t2 - t1:.2f} s; params back bit for bit: {same}; B={BATCH} maps "
+          f"forward of the round trip equal to the original's bit for bit: {equal}; "
+          f"conv5 launches {launches}")
+    if not same or not equal:
+        fail("the export/import round trip did not give back checkpoint_002")
+    if launches != 2:
+        fail("conv5 did not launch once per maps forward of the converter phase")
+    return launches, dict(export_s=t1 - t0, import_s=t2 - t1, params_equal=same,
+                          maps_equal=equal, conv5_launches=launches)
+
+
+# ---------------------------------------------------------------------------
+# float64
+# ---------------------------------------------------------------------------
+
+F64_TIMED_STEPS = 5
+# card against CPU, float64 model (its norm statistics float32, as JAX's):
+# loss rtol and the first Adam moment (0.1 x the gradient) as a share of
+# each leaf's largest entry.  Read on an H100: loss 1.5e-9, gradients
+# 1.07e-4 (the float32 statistics' last bits, CUDA's sums against the
+# CPU's); the bounds keep a margin of ~60 and ~9 over them
+F64_LOSS_RTOL, F64_GRAD_SHARE = 1e-7, 1e-3
+
+
+def drive_float64(conv5_mod):
+    """Phase 4b: a float64 model at full width (JAX's partial float64, conv5
+    off) takes one forward, backward and Adam step on the card from a host
+    batch of 32, and the same step on the CPU with the same weights and
+    noise; then F64_TIMED_STEPS timed steps on the card.  conv5 must not
+    launch.  Returns (conv5 launches, the phase's numbers)."""
+    from vaegam_tpu_torch.models import VAEGAMConfig
+    from vaegam_tpu_torch.models.vaegam import draw_noise
+    from vaegam_tpu_torch.train import Trainer
+    from vaegam_tpu_torch.utils.tree import tree_items
+
+    config = VAEGAMConfig(dtype=torch.float64, conv5_kernel=False)
+    vols, covs, glm = synthetic_data(config, BATCH, SEED)
+    batch = {"covariates": covs, "volume": vols}   # as a host loader gives it
+    noise = draw_noise(torch.Generator().manual_seed(SEED), BATCH, config, "cpu")
+    torch.cuda.synchronize()
+    conv5_mod.conv5.launches = 0
+    out = {}
+    for dev in ("cuda", "cpu"):
+        t = Trainer(config, XU_RANGES, glm, seed=SEED, enable_tb=False, device=dev)
+        c, x = t._put_batch(batch)
+        t0 = time.perf_counter()
+        loss, _ = t.train_step(c, x, noise=tuple(n.to(dev) for n in noise))
+        loss = float(loss)
+        out[dev] = (t, loss, time.perf_counter() - t0)
+    card, loss_card, first_s = out["cuda"]
+    cpu, loss_cpu, cpu_s = out["cpu"]
+    grad_err, grad_leaf = max(
+        (float((m.cpu() - w).abs().max()) / max(float(w.abs().max()), 1e-300), path)
+        for (path, m), (_, w) in zip(tree_items(card.opt_state["mu"]),
+                                     tree_items(cpu.opt_state["mu"])))
+    dtypes = {str(p.dtype) for _, p in tree_items(card.params)}
+    step_ms = []
+    c, x = card._put_batch(batch)
+    for _ in range(F64_TIMED_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _ = card.train_step(c, x)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+    launches = conv5_mod.conv5.launches
+    loss_rel = abs(loss_card - loss_cpu) / abs(loss_cpu)
+    print(f"float64 step at B={BATCH}: loss card {loss_card!r} cpu {loss_cpu!r} "
+          f"(rel {loss_rel:.3e}, bound {F64_LOSS_RTOL}); gradients (0.1 x: the first "
+          f"Adam moment) max {grad_err:.3e} of each leaf's largest, at {grad_leaf} (bound "
+          f"{F64_GRAD_SHARE}); parameter dtypes {sorted(dtypes)}; first step "
+          f"{first_s:.2f} s on the card, {cpu_s:.2f} s on the CPU; steady step ms "
+          f"{[round(v, 2) for v in step_ms]}; conv5 launches {launches}")
+    if dtypes != {"torch.float64"} or not np.isfinite([loss_card, float(loss)]).all():
+        fail("the float64 step is not float64 throughout or not finite")
+    if loss_rel > F64_LOSS_RTOL or grad_err > F64_GRAD_SHARE:
+        fail("the float64 step on the card disagrees with the CPU's")
+    if launches != 0:
+        fail("the float32 conv5 kernel launched on the float64 path")
+    return launches, dict(loss_card=loss_card, loss_cpu=loss_cpu, loss_rel=loss_rel,
+                          grad_err=grad_err, first_step_s=first_s, cpu_step_s=cpu_s,
+                          step_ms=step_ms, step_ms_median=statistics.median(step_ms))
 
 
 # ---------------------------------------------------------------------------
@@ -1155,6 +1311,7 @@ def main(argv=None) -> int:
     # stage; the correctness oracle
     with Conv5Shapes(conv5_mod) as shapes:
         step_launches, step_ms, all_ms, peak_gib = drive_main_path(conv5_mod, args.profile)
+        f64_launches, f64 = drive_float64(conv5_mod)
         libs = host_libraries()
         cli_launches, cli, outputs = drive_cli(conv5_mod, libs)
         oracle_launches, oracle, oracle_s = drive_oracle(conv5_mod)
@@ -1173,8 +1330,8 @@ def main(argv=None) -> int:
         "source": "vaegam_tpu_torch/ops/csrc/conv5.cu",
         "replaces": "vaegam_tpu/ops/pallas_conv.py:50",
         "launches": cli_launches["cli_fp32"],
-        "launches_by_path": dict(train_step=step_launches, **cli_launches,
-                                 oracle=oracle_launches),
+        "launches_by_path": dict(train_step=step_launches, float64_step=f64_launches,
+                                 **cli_launches, oracle=oracle_launches),
         "max_abs_err": err,
         "ms": timing["ms"], "plain_ms": timing["plain_ms"], "bound_ms": timing["bound_ms"],
         "bound_by": timing["bound_by"], "library_ms": timing["library_ms"],
@@ -1188,6 +1345,7 @@ def main(argv=None) -> int:
     print(json.dumps({"step_ms_median": step_ms, "vols_per_s": BATCH * 1e3 / step_ms,
                       "step_ms_min": min(all_ms), "step_ms_max": max(all_ms),
                       "batch": BATCH, "steps": TIMED_STEPS, "peak_mem_gib": peak_gib}))
+    print(json.dumps({"float64": f64}))
     print(json.dumps({"cli": cli}))
     print(json.dumps({"outputs": outputs}))
     print(json.dumps({"oracle": dict(oracle, conv5_launches=oracle_launches,

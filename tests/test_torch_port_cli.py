@@ -22,7 +22,8 @@ from vaegam_tpu.models import VAEGAMConfig as JaxConfig
 from vaegam_tpu.train import Trainer as JaxTrainer
 
 from vaegam_tpu_torch.cli.train import build_parser, main
-from vaegam_tpu_torch.data import DataLoader, DeviceResidentLoader, setup_data_loaders
+from vaegam_tpu_torch.data import (DataLoader, DeviceResidentLoader, PrefetchLoader,
+                                   setup_data_loaders)
 from vaegam_tpu_torch.models import VAEGAMConfig
 from vaegam_tpu_torch.train import Trainer, load_checkpoint
 from vaegam_tpu_torch.utils.jax_params import params_to_jax
@@ -121,16 +122,18 @@ def test_cli_trains_and_resumes_on_the_cpu(study, tmp_path):
 
 
 def test_cli_streaming_fallback_and_bf16(study, tmp_path, monkeypatch, capsys):
-    """A cache budget of one byte sends the CLI to the streaming DataLoader
-    (said on stdout); the bf16 recipe with joint norm statistics trains and
-    logs TensorBoard under run/."""
+    """A cache budget of one byte sends the CLI to the streaming prefetch
+    loader (said on stdout); the bf16 recipe with joint norm statistics
+    trains and logs TensorBoard under run/."""
     monkeypatch.setenv("VAEGAM_CACHE_MAX_BYTES", "1")
     t, loaders = main(_argv(study, tmp_path, "--epochs", "1", "--test_freq", "1",
                             "--conv_dtype", "bfloat16", "--fused_norm_stats"))
     out = capsys.readouterr().out
-    assert "[device cache disabled]" in out and "item 5" in out and "item 7" not in out
+    assert "[device cache disabled]" in out and "prefetch loader" in out
+    assert "item 5" not in out and "item 7" not in out
     assert t.writer is not None and (tmp_path / "run").is_dir()
-    assert isinstance(loaders["Shuffled_train"], DataLoader)
+    assert isinstance(loaders["Shuffled_train"], PrefetchLoader)
+    assert loaders["Shuffled_train"].transfer_dtype == "float32"
     assert t.config.conv_dtype == torch.bfloat16 and t.config.fused_norm_stats
     assert np.isfinite(t.loss["train"][0]) and np.isfinite(t.loss["test"][0])
 
@@ -155,7 +158,6 @@ def test_cli_trains_cholesky_and_x64_epsilon_on_the_cpu(study, tmp_path):
     (("--data_parallel",), "item 10"),
     (("--multihost",), "item 10"),
     (("--epoch_scan",), "item 6"),
-    (("--stream_dtype", "bfloat16"), "item 5"),
 ])
 def test_cli_refuses_unported_flags_before_any_work(tmp_path, extra, item):
     """Refused before the CSVs are read: the paths given do not exist."""

@@ -306,7 +306,8 @@ def test_conv5_kernel_matches_plain_on_card(name):
 # ---------------------------------------------------------------------------
 
 def _port_sources():
-    return sorted((ROOT / "vaegam_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return (sorted((ROOT / "vaegam_tpu_torch").rglob("*.py"))
+            + [ROOT / "chip_smoke.py", ROOT / "oracle_study.py"])
 
 
 def test_port_sources_import_neither_jax_nor_the_jax_package():
@@ -332,7 +333,9 @@ def test_port_imports_with_jax_blocked():
             "vaegam_tpu_torch.utils.signals, vaegam_tpu_torch.cli.preproc, "
             "vaegam_tpu_torch.cli.add_signal, vaegam_tpu_torch.cli.beta_maps, "
             "vaegam_tpu_torch.tools, vaegam_tpu_torch.tools.control_experiment, "
-            "vaegam_tpu_torch.utils.prng\n"
+            "vaegam_tpu_torch.utils.prng, vaegam_tpu_torch.data.prefetch, "
+            "vaegam_tpu_torch.utils.torch_port, vaegam_tpu_torch.cli.import_torch_ckpt, "
+            "vaegam_tpu_torch.cli.export_torch_ckpt\n"
             "assert 'triton' not in sys.modules\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,

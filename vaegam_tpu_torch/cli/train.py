@@ -4,16 +4,16 @@ Flag-for-flag the parser of ``vaegam_tpu.cli.train`` (reference
 multsubj_reg_run_GP.py:21-54, hyphenated ``--batch-size`` included), plus
 ``--device`` (default: the CUDA device; ``cpu`` runs the port on the CPU).
 ``main`` follows the JAX CLI: the on-card data cache
-(``VAEGAM_CACHE_MAX_BYTES`` shrinks its budget), the streaming loader when
-the data exceeds it, the GLM maps and inducing-point ranges from the CSVs,
-the Trainer with TensorBoard, ``--from_ckpt`` resume, ``train_loop``, then
+(``VAEGAM_CACHE_MAX_BYTES`` shrinks its budget), the prefetch loader
+(``--stream_dtype`` its wire) when the data exceeds it, the GLM maps and
+inducing-point ranges from the CSVs, the Trainer with TensorBoard, ``--from_ckpt`` resume, ``train_loop``, then
 the output stage (latent plot, GP plots, per-volume reconstructions,
 averaged maps; ``--no_outputs`` skips it, ``--recons_only`` runs it alone
 from a checkpoint, ``--eval_batch_size`` widens its batches), and an
 optional torch.profiler trace.
 
 Not ported yet, and refused before any work when set away from their
-defaults: data parallelism, ``--epoch_scan`` and ``--stream_dtype``.
+defaults: data parallelism and ``--epoch_scan``.
 
     python -m vaegam_tpu_torch.cli.train --train_csv T --test_csv E \\
         --glm_maps G --save_dir S --epochs N --batch-size 32
@@ -29,7 +29,8 @@ import pandas as pd
 import torch
 
 from .._device import resolve_device
-from ..data import setup_data_loaders, setup_device_loaders, wide_eval_view
+from ..data import (setup_data_loaders, setup_device_loaders, setup_prefetch_loaders,
+                    wide_eval_view)
 from ..data.device_cache import DEFAULT_MAX_BYTES
 from ..models import VAEGAMConfig
 from ..outputs import mk_avg_maps, mk_single_volumes, plot_GPs, project_latent
@@ -41,7 +42,6 @@ _NOT_YET = (
     ("data_parallel", False, "data parallel, ROADMAP module item 10"),
     ("multihost", False, "data parallel, ROADMAP module item 10"),
     ("epoch_scan", False, "whole-epoch replay, ROADMAP module item 6"),
-    ("stream_dtype", "float32", "prefetch loader, ROADMAP module item 5"),
 )
 
 
@@ -124,7 +124,7 @@ def build_parser():
     parser.add_argument("--stream_dtype",
                         choices=["float32", "bfloat16", "float16"],
                         default="float32",
-                        help="Host->device wire precision of the prefetch loader (not ported yet; float32 only).")
+                        help="Host->device wire precision of the prefetch loader (datasets over the device cache budget). bfloat16/float16 halve the bytes; float32 is restored on the device.")
     parser.add_argument("--recon_wire_dtype",
                         choices=["float32", "float16"], default="float32",
                         help="Device->host wire precision for the recon output stage's 10 maps. float16 halves the copied bytes at 2^-11 RELATIVE quantization; the written .nii files stay float32. Default float32 = bit-exact parity.")
@@ -177,16 +177,17 @@ def main(argv=None):
                                                 cache_dtype=args.cache_dtype,
                                                 device=device, **loader_kwargs)
         except ValueError as e:
-            print(f"[device cache disabled] {e} — using the streaming "
-                  "DataLoader (the prefetch loader is not ported yet, ROADMAP "
-                  "module item 5)")
+            print(f"[device cache disabled] {e} — using the pipelined "
+                  "host->device prefetch loader")
+            loaders_dict = setup_prefetch_loaders(transfer_dtype=args.stream_dtype,
+                                                  device=device, **loader_kwargs)
+        else:
+            sec = loaders_dict["Shuffled_train"].build_seconds
+            print(f"[device cache] {loaders_dict['Shuffled_train'].num_samples} "
+                  f"volumes decoded in {sec['decode']:.2f} s, uploaded in "
+                  f"{sec['upload']:.2f} s")
     if loaders_dict is None:
         loaders_dict = setup_data_loaders(**loader_kwargs)
-    else:
-        sec = loaders_dict["Shuffled_train"].build_seconds
-        print(f"[device cache] {loaders_dict['Shuffled_train'].num_samples} "
-              f"volumes decoded in {sec['decode']:.2f} s, uploaded in "
-              f"{sec['upload']:.2f} s")
 
     config = VAEGAMConfig(
         nf=args.nf,

@@ -79,8 +79,8 @@ class DeviceResidentLoader:
             if nbytes > max_bytes:
                 raise ValueError(
                     f"dataset needs {nbytes >> 20} MiB on device, over the "
-                    f"{max_bytes >> 20} MiB cache limit — use the streaming "
-                    "DataLoader instead"
+                    f"{max_bytes >> 20} MiB cache limit — use a streaming "
+                    "loader instead"
                 )
             # chunked parallel decode (native thread pool): 16 subject files
             # at a time, released once their rows land in the stacked array
@@ -183,7 +183,7 @@ def setup_device_loaders(batch_size=32, train_csv="", test_csv="", seed=0,
     precision.  The budget is checked before any decode or upload.  When the
     train and test CSVs are the same file, one cache serves all three
     loaders.  Raises ValueError when nothing fits (callers fall back to the
-    streaming DataLoader).
+    streaming loader).
     """
     check_no_row_sharding(shard_index, num_shards)
     device = resolve_device(device)
@@ -211,5 +211,5 @@ def setup_device_loaders(batch_size=32, train_csv="", test_csv="", seed=0,
             "test": test,
         }
     raise ValueError(f"dataset exceeds the {max_bytes >> 20} MiB device cache "
-                     f"budget at {dtypes[-1]} — use the streaming DataLoader "
+                     f"budget at {dtypes[-1]} — use a streaming loader "
                      "instead")

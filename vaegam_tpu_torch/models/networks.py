@@ -17,7 +17,9 @@ Precision follows the JAX recipe step for step: with a half-precision
 ``conv_dtype`` the stack input is cast once, activations stay in it between
 layers, weights are cast per call, the fp32 bias add promotes and casts
 back, norm statistics are fp32, and the FC layers, heads and sigmoid run in
-fp32.
+fp32.  A float64 model (``VAEGAMConfig.dtype``) is JAX's partial float64:
+everything in float64 but the norm statistics and the sigmoid, which the
+JAX code casts to float32.
 """
 
 from __future__ import annotations
@@ -74,71 +76,73 @@ def decoder_seed_shape(img_shape) -> tuple:
 # the trees to the port's layout
 # ---------------------------------------------------------------------------
 
-def _conv_init(key, kshape, fan_in):
+def _conv_init(key, kshape, fan_in, dtype):
     """kshape: (D, H, W, I, O), the JAX layout."""
     k_w, k_b = prng.split(key)
     bound = 1.0 / np.sqrt(fan_in)
-    return {"w": prng.uniform(k_w, kshape, -bound, bound),
-            "b": prng.uniform(k_b, (kshape[-1],), -bound, bound)}
+    return {"w": prng.uniform(k_w, kshape, -bound, bound, dtype),
+            "b": prng.uniform(k_b, (kshape[-1],), -bound, bound, dtype)}
 
 
-def _linear_init(key, in_f, out_f):
+def _linear_init(key, in_f, out_f, dtype):
     k_w, k_b = prng.split(key)
     bound = 1.0 / np.sqrt(in_f)
-    return {"w": prng.uniform(k_w, (in_f, out_f), -bound, bound),
-            "b": prng.uniform(k_b, (out_f,), -bound, bound)}
+    return {"w": prng.uniform(k_w, (in_f, out_f), -bound, bound, dtype),
+            "b": prng.uniform(k_b, (out_f,), -bound, bound, dtype)}
 
 
-def _bn_init(ch):
-    return {"scale": np.ones(ch, np.float32), "shift": np.zeros(ch, np.float32)}
+def _bn_init(ch, dtype):
+    return {"scale": np.ones(ch, dtype), "shift": np.zeros(ch, dtype)}
 
 
-def init_encoder(key, nf, num_latents, img_shape):
-    """The encoder's parameters (numpy, JAX layout) from a JAX PRNG key."""
+def init_encoder(key, nf, num_latents, img_shape, dtype=np.float32):
+    """The encoder's parameters (numpy in `dtype`, JAX layout) from a JAX
+    PRNG key."""
     ks = prng.split(key, 13)
     eo = encoder_out_shape(img_shape)
     flat = 2 * nf * eo[0] * eo[1] * eo[2]
     c = 2 * nf
     return {
-        "conv1": _conv_init(ks[0], (3, 3, 3, 1, nf), 27),
-        "conv2": _conv_init(ks[1], (3, 3, 3, nf, nf), nf * 27),
-        "conv3": _conv_init(ks[2], (3, 3, 3, nf, c), nf * 27),
-        "conv4": _conv_init(ks[3], (3, 3, 3, c, c), c * 27),
-        "conv5": _conv_init(ks[4], (3, 3, 3, c, c), c * 27),
-        "bn1": _bn_init(1),
-        "bn3": _bn_init(nf),
-        "bn5": _bn_init(c),
-        "fc1": _linear_init(ks[5], flat, 200),
-        "fc2": _linear_init(ks[6], 200, 100),
-        "fc31": _linear_init(ks[7], 100, 50),
-        "fc32": _linear_init(ks[8], 100, 50),
-        "fc33": _linear_init(ks[9], 100, 50),
-        "fc41": _linear_init(ks[10], 50, num_latents),
-        "fc42": _linear_init(ks[11], 50, num_latents),
-        "fc43": _linear_init(ks[12], 50, num_latents),
+        "conv1": _conv_init(ks[0], (3, 3, 3, 1, nf), 27, dtype),
+        "conv2": _conv_init(ks[1], (3, 3, 3, nf, nf), nf * 27, dtype),
+        "conv3": _conv_init(ks[2], (3, 3, 3, nf, c), nf * 27, dtype),
+        "conv4": _conv_init(ks[3], (3, 3, 3, c, c), c * 27, dtype),
+        "conv5": _conv_init(ks[4], (3, 3, 3, c, c), c * 27, dtype),
+        "bn1": _bn_init(1, dtype),
+        "bn3": _bn_init(nf, dtype),
+        "bn5": _bn_init(c, dtype),
+        "fc1": _linear_init(ks[5], flat, 200, dtype),
+        "fc2": _linear_init(ks[6], 200, 100, dtype),
+        "fc31": _linear_init(ks[7], 100, 50, dtype),
+        "fc32": _linear_init(ks[8], 100, 50, dtype),
+        "fc33": _linear_init(ks[9], 100, 50, dtype),
+        "fc41": _linear_init(ks[10], 50, num_latents, dtype),
+        "fc42": _linear_init(ks[11], 50, num_latents, dtype),
+        "fc43": _linear_init(ks[12], 50, num_latents, dtype),
     }
 
 
-def init_decoder(key, nf, z_dim, img_shape):
-    """The decoder's parameters (numpy, JAX layout) from a JAX PRNG key."""
+def init_decoder(key, nf, z_dim, img_shape, dtype=np.float32):
+    """The decoder's parameters (numpy in `dtype`, JAX layout) from a JAX
+    PRNG key."""
     ks = prng.split(key, 9)
     seed, _ = decoder_seed_shape(img_shape)
     c = 2 * nf
     seed_flat = c * seed[0] * seed[1] * seed[2]
     # ConvTranspose3d fan_in in torch is out_ch * prod(kernel)
     return {
-        "fc5": _linear_init(ks[0], z_dim, 50),
-        "fc6": _linear_init(ks[1], 50, 100),
-        "fc7": _linear_init(ks[2], 100, 200),
-        "fc8": _linear_init(ks[3], 200, seed_flat),
-        "convt1": _conv_init(ks[4], (3, 3, 3, c, c), c * 27),
-        "convt2": _conv_init(ks[5], (3, 3, 3, c, c), c * 27),
-        "convt3": _conv_init(ks[6], (3, 3, 3, c, nf), nf * 27),
-        "convt4": _conv_init(ks[7], (5, 3, 3, nf, nf), nf * 45),
-        "convt5": _conv_init(ks[8], (3, 3, 3, nf, 1), 27),
-        "bnt1": _bn_init(c),
-        "bnt3": _bn_init(c),
-        "bnt5": _bn_init(nf),
+        "fc5": _linear_init(ks[0], z_dim, 50, dtype),
+        "fc6": _linear_init(ks[1], 50, 100, dtype),
+        "fc7": _linear_init(ks[2], 100, 200, dtype),
+        "fc8": _linear_init(ks[3], 200, seed_flat, dtype),
+        "convt1": _conv_init(ks[4], (3, 3, 3, c, c), c * 27, dtype),
+        "convt2": _conv_init(ks[5], (3, 3, 3, c, c), c * 27, dtype),
+        "convt3": _conv_init(ks[6], (3, 3, 3, c, nf), nf * 27, dtype),
+        "convt4": _conv_init(ks[7], (5, 3, 3, nf, nf), nf * 45, dtype),
+        "convt5": _conv_init(ks[8], (3, 3, 3, nf, 1), 27, dtype),
+        "bnt1": _bn_init(c, dtype),
+        "bnt3": _bn_init(c, dtype),
+        "bnt5": _bn_init(nf, dtype),
     }
 
 
@@ -146,17 +150,19 @@ def init_decoder(key, nf, z_dim, img_shape):
 # layer applies
 # ---------------------------------------------------------------------------
 
-def batch_stat_norm(x, p, groups: int = 1):
+def batch_stat_norm(x, p, groups: int = 1, stat_dtype=None):
     """Normalize with the CURRENT batch statistics over (N, D, H, W).
 
     BatchNorm3d(track_running_stats=False) semantics: biased variance,
     eps 1e-5.  groups > 1 computes the statistics per contiguous group of
     N/groups rows (the fused 9B decode's per-one-hot statistics).
-    Statistics are taken in at least fp32.
+    Statistics are taken in ``stat_dtype``, by default in at least fp32;
+    a float64 model passes float32, as the JAX code casts to it; the
+    normalized values then meet the float64 scale and shift.
     """
     n, c = x.shape[:2]
     xg = x.reshape(groups, n // groups, *x.shape[1:])
-    xg = xg.to(torch.promote_types(x.dtype, torch.float32))
+    xg = xg.to(stat_dtype or torch.promote_types(x.dtype, torch.float32))
     axes = (1, 3, 4, 5)
     mean = xg.mean(dim=axes, keepdim=True)
     var = (xg - mean).square().mean(dim=axes, keepdim=True)
@@ -190,11 +196,13 @@ def _conv_t(x, p, stride=1, padding=0, output_padding=0, conv_dtype=None):
     return (y + p["b"].reshape(-1, 1, 1, 1)).to(x.dtype)
 
 
-def encode(params, x, conv5_kernel: bool = True, conv_dtype=None):
+def encode(params, x, conv5_kernel: bool = True, conv_dtype=None,
+           stat_dtype=None):
     """x: (B, D, H, W) -> (mu, u, d), each (B, num_latents).
 
     conv_dtype (e.g. torch.bfloat16) selects the conv stack's precision;
-    norm statistics, the FC stack and the heads stay fp32.  conv5_kernel
+    norm statistics, the FC stack and the heads stay fp32.  stat_dtype is
+    the norm statistics' dtype (see :func:`batch_stat_norm`).  conv5_kernel
     routes the fp32 conv5 through ``ops.conv5`` (the hand-written CUDA
     kernel on CUDA tensors, its plain version on CPU tensors) instead of
     ``F.conv3d``; a half-precision conv5 takes the stock conv, as the JAX
@@ -204,11 +212,12 @@ def encode(params, x, conv5_kernel: bool = True, conv_dtype=None):
     h = x[:, None]  # NCDHW with C=1
     if cd is not None:
         h = h.to(cd)  # one downcast; activations stay cd across the stack
-    h = F.relu(_conv(batch_stat_norm(h, params["bn1"]), params["conv1"], 1, cd))
+    sd = stat_dtype
+    h = F.relu(_conv(batch_stat_norm(h, params["bn1"], 1, sd), params["conv1"], 1, cd))
     h = F.relu(_conv(h, params["conv2"], 2, cd))
-    h = F.relu(_conv(batch_stat_norm(h, params["bn3"]), params["conv3"], 1, cd))
+    h = F.relu(_conv(batch_stat_norm(h, params["bn3"], 1, sd), params["conv3"], 1, cd))
     h = F.relu(_conv(h, params["conv4"], 2, cd))
-    h5 = batch_stat_norm(h, params["bn5"])
+    h5 = batch_stat_norm(h, params["bn5"], 1, sd)
     if conv5_kernel and cd is None:
         h = F.relu(conv5(h5, params["conv5"]["w"], params["conv5"]["b"]))
     else:
@@ -223,15 +232,17 @@ def encode(params, x, conv5_kernel: bool = True, conv_dtype=None):
 
 
 def decode(params, z, img_shape=REFERENCE_IMG_SHAPE, stat_groups: int = 1,
-           conv_dtype=None, fp32_final: bool = False):
+           conv_dtype=None, fp32_final: bool = False, stat_dtype=None):
     """z: (B*, z_dim) -> sigmoid volume flattened to (B*, prod(img_shape)).
 
     stat_groups: contiguous batch groups for the batch-stat norms.
     conv_dtype: the conv stack's precision (FC layers stay fp32).
     fp32_final: run convt5, the conv feeding the sigmoid, in fp32 even when
-    conv_dtype is half precision.  The sigmoid always takes fp32.
+    conv_dtype is half precision.  stat_dtype: the norm statistics' dtype,
+    and the sigmoid's (its output's) when given; by default the sigmoid
+    runs in z's dtype.
     """
-    cd, sg = conv_dtype, stat_groups
+    cd, sg, sd = conv_dtype, stat_groups, stat_dtype
     seed, crop = decoder_seed_shape(img_shape)
     c = params["convt1"]["w"].shape[0]
     h = F.relu(_linear(z, params["fc5"]))
@@ -241,13 +252,13 @@ def decode(params, z, img_shape=REFERENCE_IMG_SHAPE, stat_groups: int = 1,
     h = h.reshape(-1, c, *seed)
     if cd is not None:
         h = h.to(cd)  # one downcast; activations stay cd across the stack
-    h = F.relu(_conv_t(batch_stat_norm(h, params["bnt1"], sg), params["convt1"],
+    h = F.relu(_conv_t(batch_stat_norm(h, params["bnt1"], sg, sd), params["convt1"],
                        conv_dtype=cd))
     h = F.relu(_conv_t(h, params["convt2"], 2, (1, 0, 1), (1, 0, 1), conv_dtype=cd))
-    h = F.relu(_conv_t(batch_stat_norm(h, params["bnt3"], sg), params["convt3"],
+    h = F.relu(_conv_t(batch_stat_norm(h, params["bnt3"], sg, sd), params["convt3"],
                        conv_dtype=cd))
     h = F.relu(_conv_t(h, params["convt4"], 2, conv_dtype=cd))
-    h = batch_stat_norm(h, params["bnt5"], sg)
+    h = batch_stat_norm(h, params["bnt5"], sg, sd)
     if fp32_final and cd is not None:
         h = _conv_t(h.to(z.dtype), params["convt5"])
     else:
@@ -255,5 +266,5 @@ def decode(params, z, img_shape=REFERENCE_IMG_SHAPE, stat_groups: int = 1,
     if any(crop):
         h = h[:, :, : h.shape[2] - crop[0], : h.shape[3] - crop[1],
               : h.shape[4] - crop[2]]
-    h = torch.sigmoid(h.to(z.dtype))  # the log-likelihood consumes fp32 maps
+    h = torch.sigmoid(h.to(sd or z.dtype))  # the log-likelihood consumes fp32 maps
     return h.reshape(h.shape[0], -1)

@@ -72,6 +72,11 @@ class VAEGAMConfig:
     each GP posterior covariance as L L^T (``gp["qu_S_raw"]``);
     ``x64_epsilon`` stores epsilon in float64 (Adam updates it in float64,
     the log-likelihood reads it as float32), as the reference does.
+    ``dtype`` float64 builds every parameter and const in float64 and runs
+    the model as JAX's float64 does: the norm statistics and the decoder's
+    sigmoid in float32, the rest in float64.  It needs ``conv5_kernel``
+    off (the kernel is float32, as JAX's Pallas conv5 is) and host batches
+    (the device cache's gather restores float32 only).
     """
 
     nf: int = 8
@@ -95,8 +100,12 @@ class VAEGAMConfig:
     fused_norm_stats: bool = False
 
     def __post_init__(self):
-        if self.dtype != torch.float32:
-            raise NotImplementedError("only float32 models are ported")
+        if self.dtype not in (torch.float32, torch.float64):
+            raise ValueError(f"dtype {self.dtype}: float32 or float64")
+        if self.dtype == torch.float64 and self.conv5_kernel:
+            raise ValueError(
+                "a float64 model needs conv5_kernel=False: the conv5 kernel "
+                "is float32, as the JAX package's Pallas conv5 is")
         defaults = {f.name: f.default for f in dataclasses.fields(self)}
         for name, where in _NOT_YET.items():
             if getattr(self, name) != defaults[name]:
@@ -113,6 +122,17 @@ class VAEGAMConfig:
         return self.conv_dtype if self.dec_conv_dtype == "inherit" else self.dec_conv_dtype
 
     @property
+    def np_dtype(self):
+        """The parameters' numpy dtype."""
+        return np.float64 if self.dtype == torch.float64 else np.float32
+
+    @property
+    def stat_dtype(self):
+        """The norm statistics' and the sigmoid's dtype: float32 for a
+        float64 model (JAX's casts); None lets them follow the tensors."""
+        return torch.float32 if self.dtype == torch.float64 else None
+
+    @property
     def z_dim(self) -> int:
         return self.num_latents + self.num_covariates + 1
 
@@ -126,10 +146,10 @@ class VAEGAMConfig:
         return max(0, self.num_covariates - 7)
 
 
-def hrf_kernel(device=None) -> torch.Tensor:
+def hrf_kernel(device=None, dtype=torch.float32) -> torch.Tensor:
     """HRF sampled at TR resolution over a 20 s window (15 taps)."""
     return torch.tensor(hrf(np.arange(0.0, HRF_WINDOW_SECONDS, TR_SECONDS)),
-                        dtype=torch.float32, device=device)
+                        dtype=dtype, device=device)
 
 
 def init_model(
@@ -159,38 +179,39 @@ def init_model(
     key = prng.prng_key(seed) if key is None else key
     k_enc, k_dec, k_sa, k_ls, k_qm = prng.split(key, 5)
     n_cov, p, n_mot = config.num_covariates, config.num_inducing_pts, 6
+    dt = config.np_dtype
     gp_bank = {
         # linear gain for ALL covariates: sa ~ N(1,1), logstd ~ N(0,1)
-        "sa": np.float32(1.0) + prng.normal(k_sa, (n_cov,)),
-        "logstd": prng.normal(k_ls, (n_cov,)),
+        "sa": dt(1.0) + prng.normal(k_sa, (n_cov,), dt),
+        "logstd": prng.normal(k_ls, (n_cov,), dt),
         # sparse-GP bank for the 6 motion covariates
-        "qu_m": prng.normal(k_qm, (n_mot, p)),
-        "logkvar": np.zeros(n_mot, np.float32),
-        "log_ls": np.zeros(n_mot, np.float32),
+        "qu_m": prng.normal(k_qm, (n_mot, p), dt),
+        "logkvar": np.zeros(n_mot, dt),
+        "log_ls": np.zeros(n_mot, dt),
     }
     if config.qu_s_cholesky:
         # raw factor with an exp diagonal, L = sqrt(2) I: L L^T = 2 I
         gp_bank["qu_S_raw"] = np.tile(
-            np.diag(np.full(p, 0.5 * math.log(2.0), np.float32)), (n_mot, 1, 1))
+            np.diag(np.full(p, 0.5 * math.log(2.0), dt)), (n_mot, 1, 1))
     else:
-        gp_bank["qu_S"] = np.tile(2.0 * np.eye(p, dtype=np.float32), (n_mot, 1, 1))
+        gp_bank["qu_S"] = np.tile(2.0 * np.eye(p, dtype=dt), (n_mot, 1, 1))
     tree = {
-        "enc": init_encoder(k_enc, config.nf, config.num_latents, config.img_shape),
-        "dec": init_decoder(k_dec, config.nf, config.z_dim, config.img_shape),
+        "enc": init_encoder(k_enc, config.nf, config.num_latents, config.img_shape, dt),
+        "dec": init_decoder(k_dec, config.nf, config.z_dim, config.img_shape, dt),
         "epsilon": np.full(config.img_shape, -math.log(10.0),
-                           np.float64 if config.x64_epsilon else np.float32),
+                           np.float64 if config.x64_epsilon else dt),
         "gp": gp_bank,
     }
     params, _ = params_from_jax(tree, None, config, device)
     xu = torch.stack([
-        torch.linspace(float(lo), float(hi), p, device=device)
+        torch.linspace(float(lo), float(hi), p, dtype=config.dtype, device=device)
         for lo, hi in xu_ranges
     ])
     consts = {
         "xu": xu,
-        "hrf": hrf_kernel(device),
+        "hrf": hrf_kernel(device, config.dtype),
         "glm_maps": (None if glm_maps is None else
-                     torch.as_tensor(np.asarray(glm_maps, np.float32), device=device)),
+                     torch.as_tensor(np.asarray(glm_maps, dt), device=device)),
     }
     return params, consts
 
@@ -232,9 +253,11 @@ def hrf_convolve(gains: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
 
 def draw_noise(generator: torch.Generator, batch: int, config: VAEGAMConfig,
                device) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(eps_w (B,1), eps_d (B,L), eps_beta (C,B)) standard normals."""
+    """(eps_w (B,1), eps_d (B,L), eps_beta (C,B)) standard normals in the
+    model's dtype."""
     def randn(*shape):
-        return torch.randn(shape, generator=generator, device=device)
+        return torch.randn(shape, generator=generator, dtype=config.dtype,
+                           device=device)
 
     return (randn(batch, 1), randn(batch, config.num_latents),
             randn(config.num_covariates, batch))
@@ -269,7 +292,8 @@ def forward(
         noise = draw_noise(generator, b, config, x.device)
 
     # --- encoder & latent sample ------------------------------------------
-    mu, u, d = encode(params["enc"], x, config.conv5_kernel, config.enc_cd)
+    mu, u, d = encode(params["enc"], x, config.conv5_kernel, config.enc_cd,
+                      config.stat_dtype)
     # global d-floor: if ANY element is tiny, shift the WHOLE tensor
     d = torch.where((d < 1e-6).any(), d + 1e-6, d)
     if deterministic:
@@ -287,7 +311,10 @@ def forward(
         params["dec"], zcat, config.img_shape,
         stat_groups=1 if config.fused_norm_stats else n_cov + 1,
         conv_dtype=config.dec_cd, fp32_final=config.dec_fp32_final,
+        stat_dtype=config.stat_dtype,
     ).reshape(n_cov + 1, b, config.img_dim)
+    # a float64 model decodes float32 maps (JAX's sigmoid cast): the sums
+    # below promote them to float64, as jnp's do
     base, diffs = decoded[0], decoded[1:]                         # (B,D), (C,B,D)
 
     # --- gain (beta) distributions per covariate ---------------------------
@@ -327,13 +354,13 @@ def forward(
         gains = torch.cat([hrf_convolve(gains[:nn_], consts["hrf"]), gains[nn_:]])
 
     # --- compose reconstruction -------------------------------------------
-    x_rec = base + torch.einsum("cb,cbd->bd", gains, diffs)
+    x_rec = base + torch.einsum("cb,cbd->bd", gains, diffs.to(gains.dtype))
 
     # --- GLM regularizer (closed form of sum(cdist(cons, tile(glm, B)))) ---
     if consts["glm_maps"] is not None:
         glm = consts["glm_maps"][:, 1: n_cov + 1].T               # (C, D)
         d2 = torch.sum(diffs * diffs, dim=-1)                     # (C, B)
-        dg = torch.einsum("cbd,cd->cb", diffs, glm)               # (C, B)
+        dg = torch.einsum("cbd,cd->cb", diffs.to(glm.dtype), glm)  # (C, B)
         g2 = torch.sum(glm * glm, dim=-1)                         # (C,)
         sq = gains ** 2 * d2 - 2.0 * gains * dg + g2[:, None]
         glm_reg = b * torch.sum(torch.sqrt(torch.clamp(sq, min=0.0)))
@@ -342,7 +369,8 @@ def forward(
 
     # --- ELBO ----------------------------------------------------------------
     kl_z = lowrank_mvn_kl_to_std_normal(mu, u, d)                 # (B,)
-    # a float64 epsilon (x64_epsilon) is read as float32, as the reference does
+    # epsilon is read in the batch's dtype: a float64 epsilon (x64_epsilon) as
+    # float32 in a float32 model, as the reference does
     obs_scale = torch.exp(-params["epsilon"].to(x.dtype)).reshape(-1)  # (D,)
     log_prob = torch.sum(
         normal_log_prob(x.reshape(b, -1), x_rec, obs_scale[None, :]), dim=-1

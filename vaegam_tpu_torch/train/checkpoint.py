@@ -75,8 +75,9 @@ def save_checkpoint(
         "inducing_pts": inducing_pts,
         "consts": None if consts is None else _to_numpy(consts),
         "rng_key": None if rng_key is None else np.asarray(rng_key),
-        "torch_rng_state": torch_rng_state,
     }
+    if torch_rng_state is not None:
+        state["torch_rng_state"] = torch_rng_state
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     tmp = path + ".tmp"
     with open(tmp, "wb") as f:

@@ -19,7 +19,9 @@ The optimizer is written out in optax's shape rather than taken from
 the device, so a step needs no host sync.  On a non-finite gradient no
 parameter, Adam moment or step count changes.  Device-resident loaders feed
 gather-fused steps (``iter_index_batches`` + ``gather``); host loaders'
-numpy batches go to the card from pinned memory.
+numpy batches go to the card from pinned memory, and the prefetch loader's
+device tensors pass through.  A float64 model trains from host batches
+only (the cache's gather is float32, as in the JAX package).
 """
 
 from __future__ import annotations
@@ -219,13 +221,15 @@ class Trainer:
         return loss.detach(), aux
 
     def _put_batch(self, sample):
-        """A loader's batch -> (covariates, volume) float32 on the device.
-        Device tensors pass through; numpy batches are copied from pinned
-        memory without blocking the host."""
+        """A loader's batch -> (covariates, volume) on the device in the
+        model's dtype, as the JAX Trainer's ``_put_batch``: numpy batches
+        are cast on the host and copied from pinned memory without blocking
+        it; tensors in the model's dtype pass through untouched and narrower
+        ones are cast on the device (a wider one is never narrowed)."""
         def put(a):
             if torch.is_tensor(a):
-                return a.to(self.device)
-            t = torch.from_numpy(np.asarray(a, np.float32))
+                return a.to(self.device, torch.promote_types(a.dtype, self.config.dtype))
+            t = torch.from_numpy(np.asarray(a, self.config.np_dtype))
             if self.device.type == "cuda":
                 return t.pin_memory().to(self.device, non_blocking=True)
             return t.to(self.device)
@@ -242,6 +246,11 @@ class Trainer:
         if hasattr(loader, "set_epoch"):
             loader.set_epoch(self.epoch)
         if hasattr(loader, "iter_index_batches"):
+            if self.config.dtype != torch.float32:
+                raise ValueError(
+                    f"a {self.config.dtype} model trains from host batches "
+                    "(setup_data_loaders or setup_prefetch_loaders): the device "
+                    "cache's gather restores float32, as the JAX package's does")
             batches = (loader.gather(sel) for sel in loader.iter_index_batches())
         else:
             batches = (self._put_batch(s) for s in loader)

@@ -9,8 +9,8 @@ Its own copy of the layout logic of ``vaegam_tpu/utils/torch_export.py``
     torch channel-major; permute fc1's input columns and fc8's output rows
   * BatchNorm scale/shift, epsilon and the stacked GP bank carry over as is
     (``qu_S`` or the Cholesky parameterization's ``qu_S_raw``, whichever
-    the tree holds); a float64 epsilon (``x64_epsilon``) stays float64,
-    every other leaf is float32.
+    the tree holds); a float64 leaf (a float64 model, an ``x64_epsilon``)
+    stays float64, every other leaf is float32.
 Every mapping is a permutation or a flip, so the same function also maps a
 JAX GRADIENT tree (or Adam moment tree) onto the port's layout, and
 ``params_to_jax`` inverts it exactly (checkpoints are written in JAX layout).
@@ -31,11 +31,7 @@ _CONVTS = ("convt1", "convt2", "convt3", "convt4", "convt5")
 
 
 def _np(a) -> np.ndarray:
-    return np.asarray(a, np.float32)
-
-
-def _epsilon(a) -> np.ndarray:
-    """float32, or float64 where the tree holds a float64 epsilon."""
+    """A leaf as numpy: float64 stays float64, anything else is float32."""
     a = a.detach().cpu().numpy() if torch.is_tensor(a) else np.asarray(a)
     return np.asarray(a, np.float64 if a.dtype == np.float64 else np.float32)
 
@@ -88,7 +84,9 @@ def _fc8_inv(p, c: int):
     return w, b.reshape(c, spatial).T.reshape(-1)
 
 
-def _convert_net(net: Dict[str, Any], c: int) -> Dict[str, Dict[str, np.ndarray]]:
+def convert_net(net: Dict[str, Any], c: int) -> Dict[str, Dict[str, np.ndarray]]:
+    """One network's layers, JAX layout -> the port's (torch) layout; c is
+    the channel count of the flattened conv features (2 nf)."""
     out = {}
     for name, p in net.items():
         if name in _CONVS:
@@ -118,9 +116,9 @@ def params_from_jax(params_np: Dict[str, Any], consts_np: Optional[Dict[str, Any
     """
     c = 2 * config.nf
     tree = {
-        "enc": _convert_net(params_np["enc"], c),
-        "dec": _convert_net(params_np["dec"], c),
-        "epsilon": _epsilon(params_np["epsilon"]),
+        "enc": convert_net(params_np["enc"], c),
+        "dec": convert_net(params_np["dec"], c),
+        "epsilon": _np(params_np["epsilon"]),
         "gp": {k: _np(v) for k, v in params_np["gp"].items()},
     }
 
@@ -139,7 +137,8 @@ def params_from_jax(params_np: Dict[str, Any], consts_np: Optional[Dict[str, Any
     return params, consts
 
 
-def _convert_net_inv(net: Dict[str, Any], c: int) -> Dict[str, Dict[str, np.ndarray]]:
+def convert_net_inv(net: Dict[str, Any], c: int) -> Dict[str, Dict[str, np.ndarray]]:
+    """The inverse of :func:`convert_net`: the port's layout -> JAX's."""
     out = {}
     for name, p in net.items():
         if name in _CONVS:
@@ -166,15 +165,14 @@ def params_to_jax(params: Dict[str, Any], consts: Optional[Dict[str, Any]],
     exact inverse of :func:`params_from_jax`.  ``consts`` may be None, which
     is how an Adam moment tree is mapped."""
     def host(t):
-        return None if t is None else np.ascontiguousarray(
-            t.detach().cpu().numpy() if torch.is_tensor(t) else t, np.float32)
+        return None if t is None else np.ascontiguousarray(_np(t))
 
     c = 2 * config.nf
-    p = tree_map(host, {k: v for k, v in params.items() if k != "epsilon"})
+    p = tree_map(host, params)
     tree = {
-        "enc": _convert_net_inv(p["enc"], c),
-        "dec": _convert_net_inv(p["dec"], c),
-        "epsilon": _epsilon(params["epsilon"]),
+        "enc": convert_net_inv(p["enc"], c),
+        "dec": convert_net_inv(p["dec"], c),
+        "epsilon": p["epsilon"],
         "gp": dict(p["gp"]),
     }
     tree = tree_map(np.ascontiguousarray, tree)

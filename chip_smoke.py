@@ -5,7 +5,8 @@
                                             # 3 train steps, fp32 and bf16,
                                             # written under DIR
 
-Phases (any failure exits non-zero; nothing is caught to exit 0):
+Phases, in this order but 4c, which runs after 7 (any failure exits
+non-zero; nothing is caught to exit 0):
   1. the card: name and power limit (nvidia-smi), TF32 off;
   2. build every CUDA kernel of the main path from this checkout's sources;
   2b. the tensor-core instructions (HMMA) in the built conv5 library;
@@ -33,6 +34,20 @@ Phases (any failure exits non-zero; nothing is caught to exit 0):
      F64_LOSS_RTOL, the gradients (the first Adam moment) within
      F64_GRAD_SHARE of each leaf's largest entry; then 5 timed steps on the
      card; conv5 must not launch;
+ 4c. the Trainer's epoch_scan (a CUDA graph of the gather-fused step per
+     batch width, captured after the width's first eager step and replayed
+     for every later one) at full width on phase 4's 128 volumes and 2
+     more, held on the card (batch 32: four steps and a tail of 2).  Under
+     deterministic algorithms an eager Trainer and a replaying one from one
+     seed train 3 epochs: every epoch loss, the parameters' SHA-256, the
+     Adam moments and the four counters must agree bit for bit, each width
+     must be captured once and every later step replayed, and conv5 must
+     run once a forward (launches outside a graph plus replays of its one
+     captured launch).  On the default backends: 4 epochs each in turns
+     (the steady s/epoch and ms/step, the first apart), the graphs' memory
+     pool, one profiled epoch each (conv5's kernel events must equal its
+     launches plus replays; the host's cudaStreamSynchronize calls), and 2
+     bf16 epochs replayed against 2 eager ones (losses rtol 1e-4, no conv5);
   5. the train CLI on a NIfTI study: a 10-subject study at the reference
      grid (98 volumes a subject, 980 in all, one subject .nii.gz, the rest
      .nii) is written with the port's NIfTI codec, with its design and GLM
@@ -78,13 +93,19 @@ Phases (any failure exits non-zero; nothing is caught to exit 0):
      conv5 exactly once per train and recon forward (900 x 4 + 4 = 3,604,
      at B = 32 and 2); its JSON line, its verdict and its seconds by stage
      are printed, and its skips and gain-Cholesky fallbacks beside them;
+ 7b. the oracle at the same defaults for 30 epochs with --no_gate, once
+     eager and once with --epoch_scan, from the same initial weights: the
+     steady s/epoch of each and conv5 once a train and recon forward (no
+     recovery gate: a timing);
   8. the beta_maps CLI on a synthetic FSL tree at the reference grid (10
      subjects x 98 volumes, an exact linear model): the float64 host solve
      and the float32 solve on the card, each CSV against the ground truth,
      each timed;
-  9. one JSON line with the kernels' numbers, one with the step time, one
-     with the float64 step, one with the CLI's numbers (converters included), one with the output stage's numbers, one with
-     the oracle's and one with beta_maps';
+  9. one JSON line with the kernels' numbers (conv5's launches by path,
+     the epoch_scan paths' as launches plus replays), one with the step
+     time, one with the float64 step, one with epoch_scan's (phases 4c and
+     7b), one with the CLI's numbers (converters included), one with the
+     output stage's numbers, one with the oracle's and one with beta_maps';
  10. as the last line: {"ok": true, "device": {...}}.
 Imports nothing of JAX or of the JAX package.
 """
@@ -93,6 +114,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import os
 import shutil
@@ -441,6 +463,218 @@ def profile_steps(trainer, loader, sels, out_dir, tag):
     print(f"profile {tag}: 3 steps wall {wall_ms:.3f} ms, summed kernel time "
           f"{busy_ms:.3f} ms; conv5 kernel {'; '.join(conv5_rows) or 'no row'} "
           f"({out_dir}/profile_steps_{tag}.txt)")
+
+
+# ---------------------------------------------------------------------------
+# epoch_scan: CUDA-graph replays of the gather-fused step
+# ---------------------------------------------------------------------------
+
+SCAN_VOLS = N_VOLS + 2          # phase 4's and 2 more: four steps of 32 and a tail of 2
+SCAN_EPOCHS, SCAN_TIMED_EPOCHS, SCAN_BF16_EPOCHS = 3, 4, 2
+BF16_LOSS_RTOL = 1e-4           # the bf16 recipe's loss tolerance in the CPU tests
+
+
+def trainer_state(t):
+    """(SHA-256 of the parameters' bytes in tree order, the Adam moments,
+    the four counters) of a Trainer."""
+    import hashlib
+
+    from vaegam_tpu_torch.utils.tree import tree_items
+
+    digest = hashlib.sha256()
+    for _, p in tree_items(t.params):
+        digest.update(p.detach().cpu().contiguous().numpy().tobytes())
+    moments = [m for key in ("mu", "nu") for _, m in tree_items(t.opt_state[key])]
+    counters = {k: t.opt_state[k].item() for k in ("count", "notfinite_count",
+                                                    "last_finite", "total_notfinite")}
+    return digest.hexdigest(), moments, counters
+
+
+def graph_pool_mib():
+    """MiB of the caching allocator's segments that belong to a CUDA graph's
+    private pool (None when the snapshot does not say which pool)."""
+    segs = torch.cuda.memory_snapshot()
+    if not segs or "segment_pool_id" not in segs[0]:
+        return None
+    return sum(s["total_size"] for s in segs
+               if tuple(s["segment_pool_id"]) != (0, 0)) / 2**20
+
+
+def profile_epoch(trainer, loader):
+    """One epoch under torch.profiler: (conv5 kernel events, summed kernel
+    ms, cudaStreamSynchronize calls and their host ms, the epoch's host s)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.train_epoch(loader)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = prof.key_averages()
+    kernels = kernel_events(prof)
+    syncs = [e for e in rows if e.key == "cudaStreamSynchronize"]
+    return dict(conv5_events=sum(e.count for e in kernels if "conv5_kernel" in e.key),
+                kernel_ms=sum(e.self_device_time_total for e in kernels) / 1e3,
+                stream_syncs=sum(e.count for e in syncs),
+                stream_sync_ms=sum(e.cpu_time_total for e in syncs) / 1e3,
+                epoch_s=wall)
+
+
+def drive_epoch_scan(conv5_mod):
+    """Phase 4c: the Trainer's epoch_scan (a CUDA graph per batch width,
+    replayed) against its eager epochs at full width, on SCAN_VOLS volumes
+    on the card (batch 32: four steps and a tail of 2).  Under
+    deterministic algorithms two Trainers from one seed, one eager and one
+    replaying, train SCAN_EPOCHS epochs: every epoch loss, the parameters'
+    SHA-256, the Adam moments and the four counters must agree bit for bit,
+    and conv5 must run once a forward (eager launches plus replays of its
+    one captured launch).  Then, on the default backends, the steady epoch
+    both ways (epochs alternating, the first apart), the graphs' memory
+    pool, one profiled epoch each (conv5's kernel events against the
+    launches plus replays counted; the eager gather's stream syncs), and
+    the bf16 recipe replayed against eager bf16.  Returns (conv5 launches by
+    path, the phase's numbers)."""
+    from vaegam_tpu_torch.data import DeviceResidentLoader
+    from vaegam_tpu_torch.models import VAEGAMConfig
+    from vaegam_tpu_torch.train import Trainer
+
+    config = VAEGAMConfig()
+    vols, covs, glm = synthetic_data(config, N_VOLS, SEED)      # phase 4's volumes
+    more_vols, more_covs, _ = synthetic_data(config, SCAN_VOLS - N_VOLS, SEED + 1)
+    loader = DeviceResidentLoader.from_arrays(
+        np.concatenate([vols, more_vols]), np.concatenate([covs, more_covs]),
+        batch_size=BATCH, shuffle=True, seed=SEED, device="cuda")
+    steps = -(-SCAN_VOLS // BATCH)
+
+    def run(scan, epochs, cfg=config):
+        t = Trainer(cfg, XU_RANGES, glm, seed=SEED, enable_tb=False, device="cuda",
+                    epoch_scan=scan)
+        torch.cuda.synchronize()
+        conv5_mod.conv5.launches = conv5_mod.conv5.captured = 0
+        losses = [t.train_epoch(loader) for _ in range(epochs)]
+        torch.cuda.synchronize()
+        return t, losses, conv5_mod.conv5.launches, conv5_mod.conv5.captured
+
+    def path_launches(t, launches, captured):
+        """conv5 runs on a path: launches outside a graph, and each replay
+        of a graph that holds one (one capture a width)."""
+        if captured != sum(t.captures.values()):
+            fail(f"conv5 was captured {captured} times in {t.captures} graph captures")
+        return launches + (sum(t.replays.values()) if captured else 0)
+
+    out, by_path = {}, {}
+    # bit for bit under deterministic algorithms (cuBLAS needs its
+    # deterministic workspace setting for that)
+    cublas_env = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        eager, eager_losses, eager_launches, _ = run(False, SCAN_EPOCHS)
+        replay, replay_losses, launches, captured = run(True, SCAN_EPOCHS)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+        if cublas_env is None:
+            del os.environ["CUBLAS_WORKSPACE_CONFIG"]
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = cublas_env
+    (e_sha, e_mom, e_cnt), (r_sha, r_mom, r_cnt) = trainer_state(eager), trainer_state(replay)
+    same_moments = all(torch.equal(a, b) for a, b in zip(e_mom, r_mom))
+    replay_launches = path_launches(replay, launches, captured)
+    forwards = SCAN_EPOCHS * steps
+    print(f"epoch_scan, deterministic, {SCAN_EPOCHS} epochs of {steps} steps: losses eager "
+          f"{eager_losses} replay {replay_losses}; params SHA-256 {e_sha[:16]} / "
+          f"{r_sha[:16]}; moments equal {same_moments}; counters {e_cnt} / {r_cnt}; "
+          f"captures {replay.captures}, replays {replay.replays}; conv5 eager "
+          f"{eager_launches}, replay path {launches} launches + {captured} captured "
+          f"-> {replay_launches} runs for {forwards} forwards")
+    if not (eager_losses == replay_losses and e_sha == r_sha and same_moments
+            and e_cnt == r_cnt and np.isfinite(eager_losses).all()):
+        fail("the replayed epochs disagree with the eager ones under deterministic "
+             "algorithms")
+    if replay.captures != {BATCH: 1, SCAN_VOLS % BATCH: 1} or \
+            sum(replay.replays.values()) != forwards - 2:
+        fail("epoch_scan did not capture once a width and replay every later step")
+    if eager_launches != forwards or replay_launches != forwards:
+        fail("conv5 did not run once a forward on the epoch_scan paths")
+    by_path.update(scan_eager_det=eager_launches, scan_replay_det=replay_launches)
+    out["deterministic"] = dict(losses=eager_losses, params_sha256=e_sha, counters=e_cnt,
+                                captures=replay.captures, replays=replay.replays)
+
+    # the default backends: steady epochs in turns, the graphs' pool, profiles
+    del eager, replay
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    trainers = {k: Trainer(config, XU_RANGES, glm, seed=SEED, enable_tb=False,
+                           device="cuda", epoch_scan=k == "replay")
+                for k in ("eager", "replay")}
+    counts = {k: [0, 0] for k in trainers}
+    pool = None
+    for epoch in range(SCAN_TIMED_EPOCHS):
+        for k, t in trainers.items():
+            torch.cuda.synchronize()
+            conv5_mod.conv5.launches = conv5_mod.conv5.captured = 0
+            t.train_epoch(loader)
+            torch.cuda.synchronize()
+            counts[k][0] += conv5_mod.conv5.launches
+            counts[k][1] += conv5_mod.conv5.captured
+            if k == "replay" and epoch == 0:
+                pool = graph_pool_mib()
+    timing = {}
+    for k, t in trainers.items():
+        secs = [t.epoch_seconds[e] for e in range(SCAN_TIMED_EPOCHS)]
+        steady = statistics.median(secs[1:])
+        timing[k] = dict(epoch_s=secs, steady_epoch_s=steady,
+                         steady_step_ms=1e3 * steady / steps,
+                         conv5_runs=path_launches(t, *counts[k]))
+        if timing[k]["conv5_runs"] != SCAN_TIMED_EPOCHS * steps:
+            fail(f"conv5 did not run once a forward in the timed {k} epochs")
+    # one profiled epoch each: conv5's kernel events against the count
+    for k, t in trainers.items():
+        replays0 = sum(t.replays.values())
+        conv5_mod.conv5.launches = 0
+        prof = profile_epoch(t, loader)
+        counted = conv5_mod.conv5.launches + sum(t.replays.values()) - replays0
+        timing[k]["profiled"] = dict(prof, conv5_counted=counted)
+        print(f"epoch_scan timing, {k}: epochs {[round(v, 4) for v in timing[k]['epoch_s']]} "
+              f"s, steady {timing[k]['steady_epoch_s']:.4f} s/epoch, "
+              f"{timing[k]['steady_step_ms']:.2f} ms/step; profiled epoch {prof['epoch_s']:.4f} "
+              f"s, kernels {prof['kernel_ms']:.2f} ms, cudaStreamSynchronize "
+              f"{prof['stream_syncs']} calls, {prof['stream_sync_ms']:.2f} ms of host time; "
+              f"conv5 kernel events {prof['conv5_events']}, counted {counted}")
+        if prof["conv5_events"] != counted or counted != steps:
+            fail(f"conv5's profiled kernel events ({prof['conv5_events']}) do not match "
+                 f"its launches plus replays ({counted}) on the {k} path")
+        by_path[f"scan_{k}"] = timing[k]["conv5_runs"] + counted
+    timing["graph_pool_mib"] = pool
+    timing["captures"], timing["replays"] = trainers["replay"].captures, \
+        trainers["replay"].replays
+    print(f"epoch_scan: graph memory pool {pool} MiB after the first replayed epoch; peak "
+          f"allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    out["default"] = timing
+    del trainers
+
+    # the bf16 recipe, replayed against eager, on the default backends
+    bf16 = dataclasses.replace(config, conv_dtype=torch.bfloat16, fused_norm_stats=True)
+    b_eager, b_eager_losses, b_launches, _ = run(False, SCAN_BF16_EPOCHS, bf16)
+    b_replay, b_replay_losses, b_replay_launches, b_captured = run(True, SCAN_BF16_EPOCHS,
+                                                                   bf16)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(b_replay_losses, b_eager_losses))
+    print(f"epoch_scan bf16: losses eager {b_eager_losses} replay {b_replay_losses} (max "
+          f"rel {rel:.3e}, tol {BF16_LOSS_RTOL}); captures {b_replay.captures}, replays "
+          f"{b_replay.replays}; conv5 launches {b_launches} / {b_replay_launches}, "
+          f"captured {b_captured}")
+    if not (np.isfinite(b_replay_losses).all() and rel <= BF16_LOSS_RTOL):
+        fail("the replayed bf16 epochs are not finite or miss the eager bf16 losses")
+    if b_launches or b_replay_launches or b_captured or not b_replay.replays:
+        fail("the bf16 epoch_scan path launched or captured conv5, or replayed nothing")
+    by_path["scan_replay_bf16"] = b_replay_launches
+    out["bf16"] = dict(eager_losses=b_eager_losses, replay_losses=b_replay_losses,
+                       max_rel=rel, captures=b_replay.captures, replays=b_replay.replays)
+    return by_path, out
 
 
 # ---------------------------------------------------------------------------
@@ -1117,35 +1351,48 @@ def drive_float64(conv5_mod):
 # the correctness oracle, and beta_maps
 # ---------------------------------------------------------------------------
 
-def drive_oracle(conv5_mod):
-    """Phase 7: the port's control experiment at every default, in this
-    process, with conv5's count set to 0 just before it.  Its own output
-    goes to a log; its JSON line and the tail of the log are printed.
-    Returns (conv5 launches, the tool's result, the phase's seconds)."""
+def run_oracle(argv, log: Path):
+    """control_experiment.main(argv) in this process, its output to `log`;
+    returns (exit code, its JSON result, the Trainer it trained)."""
     import contextlib
 
+    import vaegam_tpu_torch.train as port_train
     from vaegam_tpu_torch.tools import control_experiment
 
-    work = Path(tempfile.mkdtemp(prefix="vaegam_oracle_"))
-    log = work / "control_experiment.log"
-    argv = ["--work_dir", str(work / "ctl"), "--epochs", str(ORACLE_EPOCHS)]
+    made, trainer = [], port_train.Trainer
+
+    class Recorded(trainer):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            made.append(self)
+
+    port_train.Trainer = Recorded    # the tool imports it when it runs
     try:
-        torch.cuda.synchronize()
-        conv5_mod.conv5.launches = 0
-        t0 = time.perf_counter()
-        try:
-            with open(log, "w") as f, contextlib.redirect_stdout(f):
-                rc = control_experiment.main(argv)
-        finally:
-            lines = log.read_text().splitlines()
-            print("control_experiment " + " ".join(argv[2:]) + ": last lines of its log:\n"
-                  + "\n".join(line[:300] for line in lines[-4:]))
-        torch.cuda.synchronize()
-        phase_s = time.perf_counter() - t0
-        launches = conv5_mod.conv5.launches
+        with open(log, "w") as f, contextlib.redirect_stdout(f):
+            rc = control_experiment.main(argv)
     finally:
-        shutil.rmtree(work, ignore_errors=True)
-    result = json.loads(next(line for line in reversed(lines) if line.startswith("{")))
+        port_train.Trainer = trainer
+        lines = log.read_text().splitlines()
+        print("control_experiment " + " ".join(argv[2:]) + ": last lines of its log:\n"
+              + "\n".join(line[:300] for line in lines[-4:]))
+    return rc, json.loads(next(line for line in reversed(lines) if line.startswith("{"))), \
+        made[-1]
+
+
+def drive_oracle(conv5_mod, work: Path):
+    """Phase 7: the port's control experiment at every default, in this
+    process and under `work`, with conv5's count set to 0 just before it.
+    Its own output goes to a log; its JSON line and the tail of the log are
+    printed.  Returns (conv5 launches, the tool's result, the phase's
+    seconds)."""
+    argv = ["--work_dir", str(work / "ctl"), "--epochs", str(ORACLE_EPOCHS)]
+    torch.cuda.synchronize()
+    conv5_mod.conv5.launches = 0
+    t0 = time.perf_counter()
+    rc, result, _ = run_oracle(argv, work / "control_experiment.log")
+    torch.cuda.synchronize()
+    phase_s = time.perf_counter() - t0
+    launches = conv5_mod.conv5.launches
     steps = -(-ORACLE_VOLS // BATCH)
     want = ORACLE_EPOCHS * steps + steps
     st = result["stage_seconds"]
@@ -1170,6 +1417,51 @@ def drive_oracle(conv5_mod):
     if launches != want:
         fail("conv5 did not launch once per train and recon forward in the oracle")
     return launches, result, phase_s
+
+
+ORACLE_SCAN_EPOCHS = 30
+
+
+def drive_oracle_scan(conv5_mod, work: Path):
+    """Phase 7b: the oracle at phase 7's defaults but ORACLE_SCAN_EPOCHS
+    epochs and --no_gate, under phase 7's temp dir, once eager and once
+    with --epoch_scan, from the same initial weights (the tool's seed): the
+    steady s/epoch of each (the median of its epochs after the first) and
+    conv5's runs (launches plus replays: once a train and recon forward).
+    No recovery gate: a timing.  Returns (conv5 runs by path, numbers)."""
+    steps = -(-ORACLE_VOLS // BATCH)
+    want = ORACLE_SCAN_EPOCHS * steps + steps
+    by_path, out = {}, {}
+    for scan in (False, True):
+        name = "oracle_replay" if scan else "oracle_eager"
+        argv = ["--work_dir", str(work / name), "--epochs", str(ORACLE_SCAN_EPOCHS),
+                "--no_gate"] + (["--epoch_scan"] if scan else [])
+        torch.cuda.synchronize()
+        conv5_mod.conv5.launches = conv5_mod.conv5.captured = 0
+        rc, result, t = run_oracle(argv, work / f"{name}.log")
+        torch.cuda.synchronize()
+        captured = conv5_mod.conv5.captured
+        runs = conv5_mod.conv5.launches + (sum(t.replays.values()) if captured else 0)
+        secs = [t.epoch_seconds[e] for e in sorted(t.epoch_seconds)]
+        steady = statistics.median(secs[1:])
+        out[name] = dict(first_epoch_s=secs[0], steady_epoch_s=steady,
+                         steady_step_ms=1e3 * steady / steps,
+                         train_seconds=result["train_seconds"], conv5_runs=runs,
+                         captures=t.captures, replays=t.replays,
+                         final_loss=t.loss["train"][ORACLE_SCAN_EPOCHS - 1])
+        print(f"oracle {ORACLE_SCAN_EPOCHS} epochs, {name}: exit {rc}, first epoch "
+              f"{secs[0]:.3f} s, steady {steady:.4f} s/epoch ({1e3 * steady / steps:.2f} "
+              f"ms/step), training {result['train_seconds']} s; captures {t.captures}, "
+              f"replays {t.replays}; conv5 runs {runs} (want {want}); last loss "
+              f"{out[name]['final_loss']}")
+        if rc != 0 or not np.isfinite(out[name]["final_loss"]) or runs != want:
+            fail(f"the {name} oracle run failed, is not finite or did not run conv5 once "
+                 "a forward")
+        if scan and (captured != len(t.captures) or sum(t.replays.values())
+                     != ORACLE_SCAN_EPOCHS * steps - len(t.captures)):
+            fail("the oracle's epoch_scan run did not replay every step after a capture")
+        by_path[name] = runs
+    return by_path, out
 
 
 BETA_SUBJECTS, BETA_VOLS = 10, 98
@@ -1309,12 +1601,21 @@ def main(argv=None) -> int:
 
     # 4-7. the train step; the train CLI on a NIfTI study, and its output
     # stage; the correctness oracle
-    with Conv5Shapes(conv5_mod) as shapes:
-        step_launches, step_ms, all_ms, peak_gib = drive_main_path(conv5_mod, args.profile)
-        f64_launches, f64 = drive_float64(conv5_mod)
-        libs = host_libraries()
-        cli_launches, cli, outputs = drive_cli(conv5_mod, libs)
-        oracle_launches, oracle, oracle_s = drive_oracle(conv5_mod)
+    work = Path(tempfile.mkdtemp(prefix="vaegam_oracle_"))
+    try:
+        with Conv5Shapes(conv5_mod) as shapes:
+            step_launches, step_ms, all_ms, peak_gib = drive_main_path(conv5_mod,
+                                                                       args.profile)
+            f64_launches, f64 = drive_float64(conv5_mod)
+            libs = host_libraries()
+            cli_launches, cli, outputs = drive_cli(conv5_mod, libs)
+            oracle_launches, oracle, oracle_s = drive_oracle(conv5_mod, work)
+            # after phase 7, which so finds cuDNN's algorithm cache as it
+            # did before phase 4c existed (4c is the first to search B = 2)
+            scan_launches, scan = drive_epoch_scan(conv5_mod)
+            oracle_scan_launches, scan["oracle"] = drive_oracle_scan(conv5_mod, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     unchecked = shapes.seen - set(CONV5_SHAPES.values())
     print(f"conv5 launch shapes on the main path: {sorted(shapes.seen)}; all checked "
           f"against the plain version in phase 3: {not unchecked}")
@@ -1331,7 +1632,8 @@ def main(argv=None) -> int:
         "replaces": "vaegam_tpu/ops/pallas_conv.py:50",
         "launches": cli_launches["cli_fp32"],
         "launches_by_path": dict(train_step=step_launches, float64_step=f64_launches,
-                                 **cli_launches, oracle=oracle_launches),
+                                 **scan_launches, **cli_launches, oracle=oracle_launches,
+                                 **oracle_scan_launches),
         "max_abs_err": err,
         "ms": timing["ms"], "plain_ms": timing["plain_ms"], "bound_ms": timing["bound_ms"],
         "bound_by": timing["bound_by"], "library_ms": timing["library_ms"],
@@ -1346,6 +1648,7 @@ def main(argv=None) -> int:
                       "step_ms_min": min(all_ms), "step_ms_max": max(all_ms),
                       "batch": BATCH, "steps": TIMED_STEPS, "peak_mem_gib": peak_gib}))
     print(json.dumps({"float64": f64}))
+    print(json.dumps({"epoch_scan": scan}))
     print(json.dumps({"cli": cli}))
     print(json.dumps({"outputs": outputs}))
     print(json.dumps({"oracle": dict(oracle, conv5_launches=oracle_launches,

@@ -157,7 +157,6 @@ def test_cli_trains_cholesky_and_x64_epsilon_on_the_cpu(study, tmp_path):
 @pytest.mark.parametrize("extra,item", [
     (("--data_parallel",), "item 10"),
     (("--multihost",), "item 10"),
-    (("--epoch_scan",), "item 6"),
 ])
 def test_cli_refuses_unported_flags_before_any_work(tmp_path, extra, item):
     """Refused before the CSVs are read: the paths given do not exist."""

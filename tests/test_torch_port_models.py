@@ -142,6 +142,63 @@ def test_evaluate_posterior_matches_jax_at_narrow_inducing_grid():
     np.testing.assert_allclose(ts.numpy(), js, rtol=1e-6, atol=1e-8)
 
 
+def test_singular_kuu_gives_nonfinite_values_on_both_sides():
+    """Every inducing point of one GP at the same place makes its Kuu
+    exactly singular (rank 1).  JAX's unguarded LU solve returns
+    non-finite values there and raises nothing; so does the port's
+    (``solve_ex``, no error check), in both posterior functions, while the
+    other GPs stay finite.  A train step on such consts is then skipped
+    and counted on both sides, parameters and moments untouched."""
+    import optax
+
+    rng = np.random.default_rng(9)
+    g, p, b = 6, 6, 5
+    xu = np.tile(np.linspace(-2.0, 2.0, p), (g, 1)).astype(np.float32)
+    xu[2] = 0.5
+    kvar = (np.exp(rng.normal(size=g) * 0.1) + 0.1).astype(np.float32)
+    ls = (3.0 / (1 + np.exp(-(np.exp(rng.normal(size=g) * 0.1) + 0.5)))).astype(np.float32)
+    qu_m = rng.normal(size=(g, p)).astype(np.float32)
+    qu_S = np.tile(2 * np.eye(p, dtype=np.float32), (g, 1, 1))
+    xq = rng.uniform(-2, 2, size=(g, b)).astype(np.float32)
+    args = (xu, kvar, ls, qu_m, qu_S, xq)
+    for jfn, tfn in ((jgp.evaluate_posterior, tgp.evaluate_posterior),
+                     (jgp.evaluate_posterior_diag, tgp.evaluate_posterior_diag)):
+        want = [np.asarray(v) for v in jax.vmap(jfn)(*(jnp.asarray(v) for v in args))]
+        got = [v.numpy() for v in tfn(*torch_tensors(*args))]
+        for w, t in zip(want, got):
+            assert not np.isfinite(w[2]).all() and not np.isfinite(t[2]).all()
+            assert np.isfinite(np.delete(w, 2, axis=0)).all()
+            assert np.isfinite(np.delete(t, 2, axis=0)).all()
+
+    jc, pc, params, consts, tp, tc = make_model(THIN)
+    consts = dict(consts, xu=consts["xu"].at[2].set(0.5))
+    tc["xu"][2] = 0.5
+    covs, x = make_batch(jc.img_shape, 4)
+    key = jax.random.PRNGKey(9)
+    tx = optax.apply_if_finite(optax.adam(1e-3), max_consecutive_errors=100000)
+    state = tx.init(params)
+    (jl, _), grads = jax.jit(jax.value_and_grad(jax_forward, has_aux=True),
+                             static_argnums=5)(params, consts, key, jnp.asarray(covs),
+                                               jnp.asarray(x), jc)
+    updates, state = tx.update(grads, state, params)
+    new = optax.apply_updates(params, updates)
+    assert not np.isfinite(float(jl)) and int(state.total_notfinite) == 1
+    for a, c in zip(jax.tree_util.tree_leaves(new), jax.tree_util.tree_leaves(params)):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(c))
+
+    trainer = Trainer(pc, device="cpu", params=tp, consts=tc)
+    before = tree_map(lambda t: t.detach().clone(), trainer.params)
+    loss, _ = trainer.train_step(*torch_tensors(covs, x),
+                                 noise=torch_tensors(*jax_noise(key, 4, jc.num_latents)))
+    assert not np.isfinite(float(loss))
+    assert int(trainer.opt_state["total_notfinite"]) == 1
+    assert int(trainer.opt_state["count"]) == 0
+    for (path, a), (_, c) in zip(tree_items(trainer.params), tree_items(before)):
+        assert torch.equal(a.detach(), c), path
+    for _, m in tree_items(trainer.opt_state["mu"]) + tree_items(trainer.opt_state["nu"]):
+        assert float(m.abs().max()) == 0.0
+
+
 @pytest.mark.parametrize("groups", [1, 9])
 def test_batch_stat_norm_groups_matches_jax(groups):
     """Per-contiguous-group statistics; 18 rows x 4 ch x 5x6x4 (480-element

@@ -345,6 +345,7 @@ def test_oracle_trainer_inputs_match_jax(tmp_path, monkeypatch):
         assert getattr(got["config"], field) == getattr(want["config"], field), field
     assert got["config"].glm_reg_scale == 10.0 and got["config"].qu_s_cholesky
     assert got["kw"]["seed"] == want["kw"]["seed"] and got["kw"]["enable_tb"] is False
+    assert got["kw"]["epoch_scan"] is want["kw"]["epoch_scan"] is False
     csvs = {k: sorted((tmp_path / k).glob("preproc_dset_zscored_*.csv")) for k in ("jax", "port")}
     assert [p.name for p in csvs["port"]] == [p.name for p in csvs["jax"]]
     _assert_same_tree(tmp_path / "jax", tmp_path / "port",
@@ -385,9 +386,9 @@ def _jax_result_keys():
 
 def test_oracle_end_to_end_on_the_cpu(tmp_path):
     """--device cpu at 21x25x21, 12 volumes, batch 8, 2 epochs, --no_gate
-    --max_skips 5: exit 0, the JAX tool's keys (and skips_ok), the recon and
-    averaged trees, final.tar; then --epoch_scan is refused before anything
-    is written."""
+    --max_skips 5: exit 0, the JAX tool's keys (and skips_ok; epoch_scan
+    off by default), the recon and averaged trees, final.tar
+    (tests/test_torch_port_epoch_scan.py runs it with --epoch_scan)."""
     work = tmp_path / "work"
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
@@ -399,6 +400,7 @@ def test_oracle_end_to_end_on_the_cpu(tmp_path):
     assert _jax_result_keys() | {"max_skips", "skips_ok"} <= set(result)
     assert result["img_shape"] == list(SHAPE) and result["epochs"] == 2
     assert result["conv_dtype"] == "float32" and result["device"] == "cpu"
+    assert result["epoch_scan"] is False
     assert isinstance(result["recovered"], bool) and result["skips_ok"] is True
     assert set(result["stage_seconds"]) == {"generate", "add_signal", "preproc", "train",
                                             "recon", "averages"}
@@ -408,11 +410,6 @@ def test_oracle_end_to_end_on_the_cpu(tmp_path):
     assert vols == sorted(f"vol_{v}" for v in range(N_VOLS))
     avgs = sorted(os.listdir(run / "reconstructions" / "002_avg_model_recons"))
     assert "task_avg.nii" in avgs and "sub-A00070" in avgs
-
-    never = tmp_path / "never"
-    with pytest.raises(NotImplementedError, match="item 6"):
-        ce.main(["--work_dir", str(never), "--device", "cpu", "--epoch_scan"])
-    assert not never.exists()
 
 
 def test_entry_points_need_a_card_or_cpu(tmp_path, feat_tree):  # noqa: F811

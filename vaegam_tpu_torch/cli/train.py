@@ -10,10 +10,12 @@ inducing-point ranges from the CSVs, the Trainer with TensorBoard, ``--from_ckpt
 the output stage (latent plot, GP plots, per-volume reconstructions,
 averaged maps; ``--no_outputs`` skips it, ``--recons_only`` runs it alone
 from a checkpoint, ``--eval_batch_size`` widens its batches), and an
-optional torch.profiler trace.
+optional torch.profiler trace.  ``--epoch_scan`` replays a CUDA graph of
+each batch width's gather-fused step on device-cache epochs (the Trainer's
+``epoch_scan``; on the CPU the steps run eagerly).
 
 Not ported yet, and refused before any work when set away from their
-defaults: data parallelism and ``--epoch_scan``.
+defaults: data parallelism.
 
     python -m vaegam_tpu_torch.cli.train --train_csv T --test_csv E \\
         --glm_maps G --save_dir S --epochs N --batch-size 32
@@ -41,7 +43,6 @@ from ..utils.stats import get_xu_ranges, str2bool
 _NOT_YET = (
     ("data_parallel", False, "data parallel, ROADMAP module item 10"),
     ("multihost", False, "data parallel, ROADMAP module item 10"),
-    ("epoch_scan", False, "whole-epoch replay, ROADMAP module item 6"),
 )
 
 
@@ -135,7 +136,7 @@ def build_parser():
                         help="Store epsilon in float64 and update it in float64, like the reference.")
     parser.add_argument("--epoch_scan", type=str2bool, nargs="?", const=True,
                         default=False,
-                        help="One dispatch per epoch segment (not ported yet).")
+                        help="Fuse each epoch's uniform-size train steps into one lax.scan dispatch (device-cache loaders only). Cuts host round-trips per epoch from n_steps to ~1-3 — the dominant e2e overhead on remote-attached devices (docs/PERFORMANCE.md). Same op sequence as per-step dispatch but a separately compiled executable, so trajectories can differ at compile tolerance; default off = reference-exact dispatch.")
     parser.add_argument("--conv_dtype", choices=["float32", "bfloat16"],
                         default="float32",
                         help="Conv-stack activation/compute precision. float32 (default) is the reference-parity path; bfloat16 runs the conv stacks in bf16 with fp32 norm statistics, FC layers and sigmoid.")
@@ -212,7 +213,7 @@ def main(argv=None):
         seed=args.seed, log_figs_every=args.log_figs_every,
         skip_nonfinite_updates=args.skip_nonfinite_updates,
         grad_clip=args.grad_clip, recon_wire_dtype=args.recon_wire_dtype,
-        device=device,
+        epoch_scan=args.epoch_scan, device=device,
     )
 
     if args.from_ckpt:

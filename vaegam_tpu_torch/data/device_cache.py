@@ -41,7 +41,8 @@ class DeviceResidentLoader:
     on the device (volume and covariates as float32 device tensors, subjid
     and vol_num as host numpy for the output writers), and hands
     index batches to the Trainer's gather-fused step
-    (``iter_index_batches`` + ``gather``).
+    (``iter_index_batches`` + ``gather``, or ``upload_indices`` +
+    ``gather_index`` under ``epoch_scan``).
 
     ``build_seconds`` records the cold start: the dataset's host decode
     (budget check included) and the upload.
@@ -162,9 +163,23 @@ class DeviceResidentLoader:
 
     def gather(self, sel):
         """(covariates, volumes as float32) rows `sel`, gathered on the device."""
-        idx = torch.as_tensor(np.asarray(sel), device=self.vols.device)
+        return self.gather_index(torch.as_tensor(np.asarray(sel), device=self.vols.device))
+
+    def gather_index(self, idx):
+        """:meth:`gather` for rows given as an index tensor on the cache's
+        device."""
         return (self.covs.index_select(0, idx),
                 self.vols.index_select(0, idx).float())
+
+    def upload_indices(self, sels):
+        """An epoch's index batches, concatenated in order, as one int64
+        tensor on the cache's device: a single copy from pinned memory that
+        does not block the host (the Trainer's ``epoch_scan`` epochs slice
+        it, one step's rows at a time)."""
+        flat = torch.from_numpy(np.concatenate(sels).astype(np.int64))
+        if self.vols.is_cuda:
+            return flat.pin_memory().to(self.vols.device, non_blocking=True)
+        return flat.to(self.vols.device)
 
     def __iter__(self) -> Iterator[dict]:
         for sel in self.iter_index_batches():

@@ -7,7 +7,10 @@ take the stack as a leading axis G:
   * posterior    A = Kuq^T Kuu^{-1};  f_bar = A qu_m;
                  Sigma = Kqq + A (qu_S - Kuu) A^T
   * KL           KL( N(qu_m, qu_S) || N(0, 10 I) )
-The Kuu solve is an unguarded LU solve, as in the JAX code.
+The Kuu solve is an unguarded LU solve, as in the JAX code: ``solve_ex``
+without its error check, so a singular Kuu gives non-finite values (which
+the Trainer's skip rule then handles) where ``torch.linalg.solve`` would
+raise, and no step reads the factorization's status on the host.
 """
 
 from __future__ import annotations
@@ -41,7 +44,7 @@ def evaluate_posterior(xu, k_var, ls, qu_m, qu_S, xq):
     kuq = rbf_gram(xu, xq, k_var, ls)          # (G, P, B)
     kqq = rbf_gram(xq, xq, k_var, ls)          # (G, B, B)
     kuu = rbf_gram(xu, xu, k_var, ls)          # (G, P, P)
-    a_t = torch.linalg.solve(kuu, kuq)         # (G, P, B)
+    a_t = torch.linalg.solve_ex(kuu, kuq).result   # (G, P, B)
     a = a_t.mT
     f_bar = (a @ qu_m[:, :, None])[..., 0]
     sigma = kqq + a @ (qu_S - kuu) @ a_t
@@ -59,7 +62,7 @@ def evaluate_posterior_diag(xu, k_var, ls, qu_m, qu_S, xq):
     """
     kuq = rbf_gram(xu, xq, k_var, ls)          # (G, P, B)
     kuu = rbf_gram(xu, xu, k_var, ls)          # (G, P, P)
-    a_t = torch.linalg.solve(kuu, kuq)         # (G, P, B)
+    a_t = torch.linalg.solve_ex(kuu, kuq).result   # (G, P, B)
     f_bar = (a_t.mT @ qu_m[:, :, None])[..., 0]
     var = k_var[:, None] + torch.einsum("gpb,gpq,gqb->gb", a_t, qu_S - kuu, a_t)
     return f_bar, var

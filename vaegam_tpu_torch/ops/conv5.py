@@ -3,7 +3,9 @@
 Counterpart of ``vaegam_tpu/ops/pallas_conv.py`` (``conv3d_s1_pallas``).
   * ``conv5_cuda``  -- the hand-written Hopper kernel (``csrc/conv5.cu``),
     built at first use by ``ops.build``; counts its launches in
-    ``conv5.launches``.
+    ``conv5.launches``, and a launch recorded into a CUDA graph, which runs
+    only when the graph is replayed, in ``conv5.captured`` (the graph's
+    owner counts its replays: ``Trainer.replays``).
   * ``conv5_plain`` -- the plain PyTorch version: an explicit 27-tap
     shifted-slice sum.  The CPU path and the on-card comparison use it.
   * ``conv5``       -- the op the encoder calls: an autograd Function whose
@@ -166,7 +168,10 @@ def conv5_cuda(x, w, b):
     """Launch the kernel on the current stream; returns y (B, Co, D-2, H-2, W-2)."""
     check_kernel_inputs(x, w, b)
     y = _launch(_library(), x, w, b)
-    conv5.launches += 1
+    if torch.cuda.is_current_stream_capturing():
+        conv5.captured += 1
+    else:
+        conv5.launches += 1
     return y
 
 
@@ -211,3 +216,4 @@ def conv5(x, w, b):
 
 
 conv5.launches = 0  # kernel launches, counted by conv5_cuda
+conv5.captured = 0  # launches recorded into a CUDA graph under capture

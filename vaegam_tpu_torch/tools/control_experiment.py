@@ -8,9 +8,10 @@ tree -> add_signal CLI -> preproc CLI -> Trainer on the device ->
 per-volume reconstruction -> averaged maps -> the recovery check.
 
 Every flag and default of the JAX tool, plus ``--device`` (default: the
-CUDA device; ``cpu`` runs on the CPU).  ``--epoch_scan`` is refused before
-any work (whole-epoch replay, ROADMAP module item 6).  The initial
-weights are the JAX tool's for the same seed.
+CUDA device; ``cpu`` runs on the CPU).  ``--epoch_scan`` trains with the
+Trainer's ``epoch_scan`` (CUDA-graph replays of the gather-fused step on
+the card; the same eager steps on the CPU).  The initial weights are the
+JAX tool's for the same seed.
 
     python -m vaegam_tpu_torch.tools.control_experiment --work_dir /tmp/ctl \\
         --epochs 900
@@ -285,7 +286,9 @@ def build_parser():
                         help="Device-cache dtype (auto/float32/bfloat16/"
                         "float16).")
     parser.add_argument("--epoch_scan", action="store_true", default=False,
-                        help="Whole-epoch replay (not ported yet).")
+                        help="Fuse each epoch's uniform-size steps into one "
+                             "lax.scan dispatch (Trainer epoch_scan knob; "
+                             "recipe study arm — see docs/PERFORMANCE.md).")
     parser.add_argument("--motion_artifacts", type=float, default=None,
                         help="Inject motion-correlated artifacts with known "
                         "octahedral maps at this intensity.  Default: 150 for "
@@ -298,9 +301,6 @@ def build_parser():
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.epoch_scan:
-        raise NotImplementedError("--epoch_scan is not ported yet (whole-epoch "
-                                  "replay, ROADMAP module item 6)")
     device = resolve_device(args.device)
 
     from ..cli import add_signal, preproc
@@ -399,7 +399,7 @@ def main(argv=None):
                                    cache_dtype=args.cache_dtype, device=device)
     trainer = Trainer(config, get_xu_ranges([csv, csv]), glm_maps=glm_maps,
                       save_dir=run_dir, seed=args.seed, enable_tb=False,
-                      device=device)
+                      epoch_scan=args.epoch_scan, device=device)
     t_train0 = time.time()
     if warm:
         trainer.train_loop(loaders, epochs=warm, test_freq=None,

@@ -22,6 +22,14 @@ gather-fused steps (``iter_index_batches`` + ``gather``); host loaders'
 numpy batches go to the card from pinned memory, and the prefetch loader's
 device tensors pass through.  A float64 model trains from host batches
 only (the cache's gather is float32, as in the JAX package).
+
+``epoch_scan`` is the counterpart of the JAX Trainer's one-dispatch scan
+over a run of gather-fused steps (``_build_gather_train_scan``): on the
+card each batch width's gather-fused step is captured once as a CUDA graph
+and replayed for every non-figure step at that width (see
+:class:`_StepGraph`); figure steps run eagerly.  The schedule, the noise
+and the arithmetic are the eager path's, so on the CPU, where the "replay"
+is the eager step itself, both settings give the same bits.
 """
 
 from __future__ import annotations
@@ -37,8 +45,8 @@ import numpy as np
 import torch
 
 from .._device import configure_cuda_backends, resolve_device
-from ..models.vaegam import (COVARIATE_KEYS, VAEGAMConfig, forward, init_model,
-                             resolve_qu_S)
+from ..models.vaegam import (COVARIATE_KEYS, VAEGAMConfig, draw_noise, forward,
+                             init_model, resolve_qu_S)
 from ..utils import prng, tb
 from ..utils.jax_params import params_from_jax, params_to_jax
 from ..utils.tree import tree_items, tree_map
@@ -59,6 +67,11 @@ class Trainer:
     with ``seed``.  Runs on the CUDA device unless
     ``device="cpu"``; on the card it turns TF32 off for the fp32 path and
     cuDNN's algorithm search on.
+
+    ``epoch_scan`` replays a CUDA graph of the gather-fused step on
+    device-cache epochs (module docstring); ``replays`` and ``captures``
+    count, by batch width, the graph replays and captures so far.  Host and
+    prefetch loaders train as without it, as in the JAX package.
 
     ``recon_wire_dtype`` "float16" casts the output stage's maps to float16
     on the device before their copy to the host (half the bytes; the files
@@ -82,6 +95,7 @@ class Trainer:
         skip_nonfinite_updates: bool = True,
         grad_clip: float = 0.0,
         recon_wire_dtype: str = "float32",
+        epoch_scan: bool = False,
         device=None,
         params=None,
         consts=None,
@@ -95,6 +109,11 @@ class Trainer:
         self.log_figs_every = log_figs_every
         self.skip_nonfinite_updates = skip_nonfinite_updates
         self.grad_clip = grad_clip
+        self.epoch_scan = epoch_scan
+        self._graphs: Dict[int, _StepGraph] = {}   # batch width -> its graph
+        self._graph_pool = None                    # one memory pool for all widths
+        self.replays: Dict[int, int] = {}
+        self.captures: Dict[int, int] = {}
         if recon_wire_dtype not in ("float32", "float16"):
             raise ValueError(f"recon_wire_dtype {recon_wire_dtype!r}")
         self._maps_wire = torch.float16 if recon_wire_dtype == "float16" else None
@@ -133,7 +152,16 @@ class Trainer:
             except ImportError as e:
                 print(f"[tensorboard] no event file under {log_dir}: {e}")
 
+    def _drop_graphs(self) -> None:
+        """Forget the captured steps: they hold the addresses of the
+        current parameters, moments and counters and the config, lr and
+        consts they were captured with (the JAX Trainer rebuilds its scan
+        at the same points)."""
+        self._graphs = {}
+        self._graph_pool = None
+
     def _set_params(self, params) -> None:
+        self._drop_graphs()
         self.params = tree_map(
             lambda t: t.detach().to(self.device).clone().requires_grad_(True),
             params)
@@ -141,6 +169,8 @@ class Trainer:
 
     def _reset_opt_state(self, mu=None, nu=None, counters=None) -> None:
         """Fresh Adam moments and counters, or the given ones (port layout)."""
+        self._drop_graphs()
+
         def moment(m):
             if m is None:
                 return tree_map(torch.zeros_like, self.params)
@@ -167,11 +197,15 @@ class Trainer:
         """Switch the conv precision mid-training (e.g. an fp32 warm start
         before bf16 convs); params and optimizer state are untouched."""
         self.config = dataclasses.replace(self.config, conv_dtype=conv_dtype)
+        self._drop_graphs()
 
     # ------------------------------------------------------------ optimizer
     @torch.no_grad()
     def _apply_gradients(self, grads) -> None:
-        """apply_if_finite(chain(clip_by_global_norm?, adam(lr))) in place."""
+        """apply_if_finite(chain(clip_by_global_norm?, adam(lr))) in place.
+
+        Every parameter, moment and counter keeps its storage: a captured
+        step (``epoch_scan``) reads and writes them at fixed addresses."""
         st = self.opt_state
         if self.skip_nonfinite_updates:
             finite = torch.stack([torch.isfinite(g).all() for g in grads]).all()
@@ -201,10 +235,10 @@ class Trainer:
             p.copy_(torch.where(apply, p + upd, p))
             m.copy_(torch.where(apply, m_new, m))
             v.copy_(torch.where(apply, v_new, v))
-        st["count"] = torch.where(apply, count_inc, st["count"])
-        st["notfinite_count"] = notfinite_count
-        st["last_finite"] = finite
-        st["total_notfinite"] = st["total_notfinite"] + (~finite).to(torch.int32)
+        st["count"].copy_(torch.where(apply, count_inc, st["count"]))
+        st["notfinite_count"].copy_(notfinite_count)
+        st["last_finite"].copy_(finite)
+        st["total_notfinite"].add_((~finite).to(torch.int32))
 
     # ----------------------------------------------------------------- step
     def train_step(self, covariates, x, noise=None):
@@ -238,9 +272,10 @@ class Trainer:
 
     # --------------------------------------------------------------- epochs
     def train_epoch(self, loader) -> float:
-        """One epoch: gather-fused steps on a device-resident loader, host
-        batches otherwise.  Losses and fallback counts stay on the device
-        until one sync at the end of the epoch."""
+        """One epoch: gather-fused steps on a device-resident loader (graph
+        replays under ``epoch_scan``), host batches otherwise.  Losses and
+        fallback counts stay on the device until one sync at the end of the
+        epoch."""
         t0 = time.perf_counter()
         # epoch-addressed shuffle: a resume continues the unbroken order
         if hasattr(loader, "set_epoch"):
@@ -251,24 +286,14 @@ class Trainer:
                     f"a {self.config.dtype} model trains from host batches "
                     "(setup_data_loaders or setup_prefetch_loaders): the device "
                     "cache's gather restores float32, as the JAX package's does")
-            batches = (loader.gather(sel) for sel in loader.iter_index_batches())
+            if self.epoch_scan:
+                losses, fbs, last_covs = self._train_epoch_replayed(loader)
+            else:
+                losses, fbs, last_covs = self._run_steps(
+                    loader.gather(sel) for sel in loader.iter_index_batches())
         else:
-            batches = (self._put_batch(s) for s in loader)
-        losses, fbs, last_covs = [], [], None
-        for batch_idx, (covs, x) in enumerate(batches):
-            loss, aux = self.train_step(covs, x)
-            losses.append(loss)
-            fbs.append(aux["mvn_fallbacks"])
-            last_covs = covs
-            if self._figs_enabled and batch_idx % self.log_figs_every == 0:
-                # the step's own gathered batch: on the device cache this is
-                # the JAX Trainer's re-gather of the sampled batch alone
-                t_fig = time.perf_counter()
-                self._log_batch_figures(covs, x, "train")
-                self.figure_seconds[self.epoch] = (
-                    self.figure_seconds.get(self.epoch, 0.0)
-                    + time.perf_counter() - t_fig)
-        train_loss = float(torch.stack(losses).sum()) if losses else 0.0
+            losses, fbs, last_covs = self._run_steps(self._put_batch(s) for s in loader)
+        train_loss = float(losses.sum()) if losses is not None else 0.0
         self._account_mvn_fallbacks(fbs)
         if not np.isfinite(train_loss):
             # a non-PSD qu_S turns the loss NaN through the KL Cholesky
@@ -285,8 +310,99 @@ class Trainer:
         self.epoch += 1
         return train_loss
 
+    def _is_figure_step(self, batch_idx) -> bool:
+        return self._figs_enabled and batch_idx % self.log_figs_every == 0
+
+    def _step_figures(self, covs, x) -> None:
+        """A figure step's figures, from the step's own gathered batch: on
+        the device cache this is the JAX Trainer's re-gather of the sampled
+        batch alone."""
+        t_fig = time.perf_counter()
+        self._log_batch_figures(covs, x, "train")
+        self.figure_seconds[self.epoch] = (self.figure_seconds.get(self.epoch, 0.0)
+                                           + time.perf_counter() - t_fig)
+
+    def _run_steps(self, batches):
+        """Eager steps over (covariates, volume) batches; returns the losses
+        and fallback counts stacked on the device (None for no batch) and
+        the last batch's covariates."""
+        losses, fbs, last_covs = [], [], None
+        for batch_idx, (covs, x) in enumerate(batches):
+            loss, aux = self.train_step(covs, x)
+            losses.append(loss)
+            fbs.append(aux["mvn_fallbacks"])
+            last_covs = covs
+            if self._is_figure_step(batch_idx):
+                self._step_figures(covs, x)
+        if not losses:
+            return None, None, None
+        return torch.stack(losses), torch.stack(fbs), last_covs
+
+    def _train_epoch_replayed(self, loader):
+        """The device-cache epoch under ``epoch_scan``, in the loader's
+        order: figure steps eagerly with their figures, as without it;
+        every other step through :meth:`_replay_step`.  The epoch's indices
+        go to the device in one copy; losses and fallback counts collect in
+        per-epoch device buffers.  Returns what :meth:`_run_steps` does."""
+        sels = list(loader.iter_index_batches())
+        if not sels:
+            return None, None, None
+        order = loader.upload_indices(sels)
+        losses = fbs = None
+        start = 0
+        for i, sel in enumerate(sels):
+            if self._is_figure_step(i):
+                covs, x = loader.gather(sel)
+                loss, aux = self.train_step(covs, x)
+                fb = aux["mvn_fallbacks"]
+                self._step_figures(covs, x)
+            else:
+                loss, fb = self._replay_step(loader, order[start:start + len(sel)])
+            if losses is None:
+                losses, fbs = loss.new_empty(len(sels)), fb.new_empty(len(sels))
+            # read a graph's outputs before the next replay: the graphs
+            # share one memory pool
+            losses[i].copy_(loss)
+            fbs[i].copy_(fb)
+            start += len(sel)
+        return losses, fbs, loader.covs.index_select(0, order[-len(sels[-1]):])
+
+    def _replay_step(self, loader, idx):
+        """One non-figure gather-fused step of an ``epoch_scan`` epoch on
+        the rows ``idx`` (a device tensor); returns (loss, fallback count)
+        as device tensors.
+
+        The noise is drawn here, eagerly, from the Trainer's generator in
+        ``draw_noise``'s order, so the generator advances as in an eager
+        step.  On the CPU the step then runs eagerly.  On the card the
+        first step at a width runs eagerly through :class:`_StepGraph`'s
+        static buffers (on a side stream; it is a real step of the
+        schedule, and it runs cuDNN's algorithm search for the width), the
+        width's graph is captured after it, and every later step at that
+        width is a replay.  A capture or replay that fails raises."""
+        width = idx.shape[0]
+        noise = draw_noise(self.generator, width, self.config, self.device)
+        if self.device.type != "cuda":
+            covs, x = loader.gather_index(idx)
+            loss, aux = self.train_step(covs, x, noise=noise)
+            return loss, aux["mvn_fallbacks"]
+        g = self._graphs.get(width)
+        if g is None or not g.reads(loader):
+            g = _StepGraph(loader, idx, noise)
+            out = g.warm_up(self.train_step)
+            if self._graph_pool is None:
+                self._graph_pool = torch.cuda.graph_pool_handle()
+            g.capture(self.train_step, self._graph_pool)
+            self._graphs[width] = g
+            self.captures[width] = self.captures.get(width, 0) + 1
+            return out
+        g.load(idx, noise)
+        g.graph.replay()
+        self.replays[width] = self.replays.get(width, 0) + 1
+        return g.loss, g.fallbacks
+
     def _account_mvn_fallbacks(self, fbs) -> None:
-        n = int(torch.stack(fbs).sum()) if fbs else 0
+        n = int(fbs.sum()) if fbs is not None else 0
         if n:
             self.mvn_fallbacks += n
             print(f"  [warn] {n} gain-covariance Cholesky fallback(s) this "
@@ -508,7 +624,7 @@ class Trainer:
             self.lr = float(ckpt_lr)
         params, consts = params_from_jax(state["params"], state.get("consts"),
                                          self.config, self.device)
-        self._set_params(params)
+        self._set_params(params)   # drops the captured steps too
         if consts is not None:
             self.consts = consts
         self._load_opt_state(state["optimizer_state"], state["params"])
@@ -521,3 +637,58 @@ class Trainer:
             print("[load_state] the checkpoint holds no torch generator state "
                   f"for {self.device.type} (a JAX checkpoint keeps a JAX PRNG "
                   "key): the PRNG chain restarts from this Trainer's seed")
+
+
+class _StepGraph:
+    """One batch width's gather-fused train step as a CUDA graph.
+
+    Static inputs: the batch's rows of the device cache (``idx``) and the
+    forward's three noise tensors, refilled before each replay.  The
+    parameters, Adam moments and counters are updated in place at their own
+    addresses (:meth:`Trainer._apply_gradients`); the cache's volumes and
+    covariates are read where they lie.  Static outputs: the step's loss
+    and gain-Cholesky fallback count, to be read before the next replay of
+    any graph of the Trainer (they share one memory pool).  conv5's wrapper
+    counts a launch recorded into the graph in ``conv5.captured``, not in
+    ``conv5.launches``; each replay runs it once more (``Trainer.replays``).
+    It holds no reference to its Trainer (the Trainer's train step is
+    passed in), so dropping a Trainer frees its graphs and their pool.
+    """
+
+    def __init__(self, loader, idx, noise):
+        self.vols, self.covs = loader.vols, loader.covs
+        self.gather_index = loader.gather_index
+        self.idx = idx.clone()
+        self.noise = tuple(n.clone() for n in noise)
+        self.graph = None
+
+    def reads(self, loader) -> bool:
+        """Whether this graph gathers from `loader`'s cache."""
+        return loader.vols is self.vols and loader.covs is self.covs
+
+    def load(self, idx, noise) -> None:
+        self.idx.copy_(idx)
+        for buf, n in zip(self.noise, noise):
+            buf.copy_(n)
+
+    def _step(self, train_step):
+        covs, x = self.gather_index(self.idx)
+        loss, aux = train_step(covs, x, noise=self.noise)
+        return loss, aux["mvn_fallbacks"]
+
+    def warm_up(self, train_step):
+        """The step, eagerly, on a side stream (as ``torch.cuda.graph``
+        asks of the work before a capture); returns its outputs."""
+        main = torch.cuda.current_stream(self.idx.device)
+        side = torch.cuda.Stream(self.idx.device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            out = self._step(train_step)
+        main.wait_stream(side)
+        return out
+
+    def capture(self, train_step, pool) -> None:
+        """Record the step; nothing runs until :meth:`graph.replay`."""
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph, pool=pool):
+            self.loss, self.fallbacks = self._step(train_step)

@@ -13,9 +13,10 @@ non-zero; nothing is caught to exit 0):
   3. each kernel against its plain PyTorch version on the card, forward and
      backward, at every shape the main path gives it (batch 32, the study's
      last batch of 20, --eval_batch_size 128 and its last batch of 84,
-     phase 4's B=4 forward, the oracle's last batch of 2) and
-     a few others (both of conv5's staging paths); phases 4-6 record the
-     shape of every launch and fail on one this phase did not check;
+     phase 4's B=4 forward, the oracle's last batch of 2, phase 9's
+     per-rank 16 and 10) and a few others (both of conv5's staging paths);
+     phases 4-9 record the shape of every launch and fail on one this
+     phase did not check;
      device time of conv5 and F.conv3d at the main and MNI shapes, with
      the CUDA-event time of 200 back-to-back calls and the host time to
      enqueue one call beside it;
@@ -101,12 +102,37 @@ non-zero; nothing is caught to exit 0):
      subjects x 98 volumes, an exact linear model): the float64 host solve
      and the float32 solve on the card, each CSV against the ground truth,
      each timed;
-  9. one JSON line with the kernels' numbers (conv5's launches by path,
-     the epoch_scan paths' as launches plus replays), one with the step
-     time, one with the float64 step, one with epoch_scan's (phases 4c and
-     7b), one with the CLI's numbers (converters included), one with the
-     output stage's numbers, one with the oracle's and one with beta_maps';
- 10. as the last line: {"ok": true, "device": {...}}.
+  9. data parallel (vaegam_tpu_torch.parallel) at the reference defaults:
+     9a. two ranks spawned by the script share the card over gloo (CUDA
+     tensors), each holding phase 4c's 130 volumes, global batch 32 (16 a
+     rank): the first step against a single-process step from the same
+     parameters and noise, in float64 (loss DP_F64_LOSS_RTOL, each gradient
+     leaf DP_F64_GRAD_SHARE of its largest entry) and in fp32 (loss
+     DP_LOSS_RTOL, the JAX DP test's; the fp32 gradients printed beside
+     both steps' distance from float64); on the wide inducing grids
+     DP_XU_RANGES, the main path's grids printed beside them; 8 steps in
+     all, the parameters' and moments' SHA-256 equal on both ranks, the
+     per-rank step time;
+     9b. a world of one over NCCL (what --data_parallel gives on a
+     one-card machine) under epoch_scan on the same volumes: replay equals
+     eager bit for bit under deterministic algorithms, every step's
+     collectives recorded into each width's graph, NCCL's kernel events
+     the same replayed as eager, conv5's kernel events equal to its
+     launches plus replays;
+     9c. the train CLI with --multihost (VAEGAM_* variables), two ranks on
+     the card, on phase 5's study with phase 5's arguments for 2 epochs
+     and then the output stage: both ranks' losses equal and within
+     DP_CLI_RTOL of phase 5's (the JAX multi-process CLI test's bound), the
+     checkpoint, GP CSVs, 9,800 recon maps and 110 averaged maps written
+     once, by rank 0, conv5 once a forward on each rank; the ranks report
+     their conv5 launch shapes, which phase 3 must have checked;
+ 10. one JSON line with the kernels' numbers (conv5's launches by path,
+     the epoch_scan paths' as launches plus replays, the ranks'), one with
+     the step time, one with the float64 step, one with epoch_scan's
+     (phases 4c and 7b), one with the CLI's numbers (converters included),
+     one with the output stage's numbers, one with the oracle's, one with
+     beta_maps' and one with data parallel's;
+ 11. as the last line: {"ok": true, "device": {...}}.
 Imports nothing of JAX or of the JAX package.
 """
 
@@ -117,6 +143,7 @@ import dataclasses
 import gc
 import json
 import os
+import queue
 import shutil
 import statistics
 import subprocess
@@ -135,6 +162,21 @@ ORACLE_EPOCHS, ORACLE_VOLS = 900, 98   # the oracle's gate at its defaults
 CLI_EPOCHS, BF16_EPOCHS = 3, 2
 WIDE_EVAL_BATCH = 128                  # the output stage's --eval_batch_size run
 XU_RANGES = [[-2.0, 2.0]] * 6          # as bench.py
+DP_RANKS, DP_STEPS, DP_TIMED_STEPS, DP_CLI_EPOCHS = 2, 3, 5, 2
+# the fp32 bounds of the JAX package's DP test (tests/test_parallel.py:202-237)
+# and of its 2-process CLI test (tests/test_multihost.py:240-243)
+DP_LOSS_RTOL, DP_CLI_RTOL = 2e-5, 2e-3
+# phase 9a holds the two-rank step's gradients to the single-process one's
+# in float64, at the float64 bounds of tests/test_torch_port_parallel.py:
+# at full width the fp32 gradients of the two depend on which algorithms
+# each process's cuDNN search picks, up to ~1e-3 of a leaf's largest entry
+# (enc/bn1/scale on an H100, PERF.md §6), past the JAX test's fp32 2e-4
+DP_F64_LOSS_RTOL, DP_F64_GRAD_SHARE = 1e-9, 1e-7
+# phase 9a's inducing grids: wide, so that Kuu is well conditioned (as in
+# phase 4's card-vs-CPU check and tests/torch_port_common.py); at XU_RANGES
+# its condition number is ~1e8 and the GP leaves' fp32 gradients differ
+# between any two summation orders
+DP_XU_RANGES = [[-20.0, 20.0]] * 6
 # H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, dense
 # TF32 in them, HBM3
 FP32_FLOPS, TF32_FLOPS, HBM_BYTES_PER_S = 67e12, 495e12, 3.35e12
@@ -219,6 +261,9 @@ CONV5_SHAPES = {  # (B, Ci, D, H, W, Co)
     "mni": (4, 16, 20, 25, 20, 16),      # 91x109x91 grid
     "thin": (4, 4, 3, 4, 3, 4),          # nf=2 on 21x25x21
     "hw30": (4, 4, 5, 6, 5, 4),          # H*W % 4 != 0: the 4-byte staging path
+    # phase 9's two ranks: their half of batch 32 and of the study's last batch
+    "dp": (BATCH // DP_RANKS, 16, 8, 10, 6, 16),
+    "dp-tail": (N_STUDY % BATCH // DP_RANKS, 16, 8, 10, 6, 16),
 }
 TIMED_CONV5_SHAPES = ("main", "mni")
 
@@ -501,8 +546,9 @@ def graph_pool_mib():
 
 
 def profile_epoch(trainer, loader):
-    """One epoch under torch.profiler: (conv5 kernel events, summed kernel
-    ms, cudaStreamSynchronize calls and their host ms, the epoch's host s)."""
+    """One epoch under torch.profiler: (conv5 kernel events, NCCL kernel
+    events, summed kernel ms, cudaStreamSynchronize calls and their host
+    ms, the epoch's host s)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -515,6 +561,7 @@ def profile_epoch(trainer, loader):
     kernels = kernel_events(prof)
     syncs = [e for e in rows if e.key == "cudaStreamSynchronize"]
     return dict(conv5_events=sum(e.count for e in kernels if "conv5_kernel" in e.key),
+                nccl_events=sum(e.count for e in kernels if "nccl" in e.key.lower()),
                 kernel_ms=sum(e.self_device_time_total for e in kernels) / 1e3,
                 stream_syncs=sum(e.count for e in syncs),
                 stream_sync_ms=sum(e.cpu_time_total for e in syncs) / 1e3,
@@ -691,6 +738,7 @@ def write_study(root: Path, img_shape, seed):
     from vaegam_tpu_torch.utils import nifti
     from vaegam_tpu_torch.utils.stats import zscore
 
+    root.mkdir(parents=True, exist_ok=True)
     rng = np.random.default_rng(seed)
     task = ((np.arange(STUDY_VOLS) // 10) % 2).astype(np.float32)
     cube = tuple(slice(s // 2 - 2, s // 2 + 3) for s in img_shape)
@@ -1055,19 +1103,20 @@ def compare_recon_pipeline(trainer, loader, design, out_dir: Path):
     return times
 
 
-def drive_cli(conv5_mod, libs):
-    """Phases 5 and 6; returns (conv5 launches by CLI run, the CLI's
-    numbers, the output stage's numbers)."""
+def drive_cli(conv5_mod, libs, root: Path):
+    """Phases 5 and 6, under `root`; the study stays in root/"study" for
+    phase 9c and the runs' files are deleted.  Returns (conv5 launches by
+    CLI run, the CLI's numbers, the output stage's numbers, (design csv,
+    glm csv, root))."""
     from vaegam_tpu_torch.models import VAEGAMConfig
     from vaegam_tpu_torch.train import Trainer, load_checkpoint
     from vaegam_tpu_torch.utils.jax_params import params_to_jax
     from vaegam_tpu_torch.utils.tree import tree_items
 
     config = VAEGAMConfig()
-    root = Path(tempfile.mkdtemp(prefix="vaegam_study_"))
     try:
         t0 = time.perf_counter()
-        design, glm, paths = write_study(root, config.img_shape, SEED)
+        design, glm, paths = write_study(root / "study", config.img_shape, SEED)
         print(f"wrote the study ({STUDY_SUBJECTS} subjects x {STUDY_VOLS} volumes) in "
               f"{time.perf_counter() - t0:.1f} s")
         numbers = time_decoders(paths)
@@ -1100,6 +1149,7 @@ def drive_cli(conv5_mod, libs):
                        cache_dtype=str(loaders["Shuffled_train"].vols.dtype),
                        peak_mem_gib=peak_gib, volumes=n_vols, batch=BATCH,
                        fp32=dict(epoch_numbers(t, range(CLI_EPOCHS), n_vols),
+                                 train_losses=[t.loss["train"][e] for e in range(CLI_EPOCHS)],
                                  conv5_launches=launches, forwards=forwards,
                                  tb_epoch_end_s=[t.tb_seconds[e] for e in range(CLI_EPOCHS)]))
 
@@ -1209,13 +1259,15 @@ def drive_cli(conv5_mod, libs):
         conv_launches, numbers["converters"] = drive_converters(
             conv5_mod, ckpts[1], loaders["UnShuffled_train"], root / "convert")
     finally:
-        shutil.rmtree(root, ignore_errors=True)
+        for run in root.iterdir():
+            if run.name != "study":
+                shutil.rmtree(run, ignore_errors=True)
     by_path = {"cli_fp32": launches, "cli_resume": r_launches,
                "cli_stream_f32": stream["float32"]["conv5_launches"],
                "cli_stream_f16": stream["float16"]["conv5_launches"],
                "cli_bf16": b_launches, "cli_recons_wide_f16": w_launches,
                "converters": conv_launches}
-    return by_path, numbers, outputs
+    return by_path, numbers, outputs, (design, glm, root)
 
 
 def drive_converters(conv5_mod, ckpt: Path, loader, out_dir: Path):
@@ -1566,6 +1618,437 @@ def drive_beta_maps():
     return out
 
 
+# ---------------------------------------------------------------------------
+# data parallel
+# ---------------------------------------------------------------------------
+
+def dp_volumes(config):
+    """Phase 4c's SCAN_VOLS volumes: (vols, covs, glm)."""
+    vols, covs, glm = synthetic_data(config, N_VOLS, SEED)
+    more_vols, more_covs, _ = synthetic_data(config, SCAN_VOLS - N_VOLS, SEED + 1)
+    return np.concatenate([vols, more_vols]), np.concatenate([covs, more_covs]), glm
+
+
+def step_grads(trainer, covs, x, noise, xu=None):
+    """A Trainer's loss and (summed) gradients on one batch, with the
+    inducing grids `xu` when given; nothing is applied."""
+    from vaegam_tpu_torch.models.vaegam import forward
+    from vaegam_tpu_torch.parallel import all_reduce_grads
+
+    consts = trainer.consts if xu is None else dict(trainer.consts, xu=xu)
+    loss, _ = forward(trainer.params, consts, covs, x, trainer.config, noise=noise,
+                      mesh=trainer.mesh)
+    grads = torch.autograd.grad(loss, trainer._leaves)
+    if trainer.mesh is not None:
+        grads = all_reduce_grads(grads, trainer.mesh)
+    return float(loss.detach()), grads
+
+
+def float64_grads(trainer, covs, x, noise):
+    """A Trainer's loss and (summed) gradients on one batch in float64 (its
+    parameters cast; norm statistics in float64 too; conv5 through cuDNN),
+    nothing applied."""
+    from vaegam_tpu_torch.models.vaegam import forward
+    from vaegam_tpu_torch.parallel import all_reduce_grads
+    from vaegam_tpu_torch.utils.tree import tree_items, tree_map
+
+    params = tree_map(lambda t: t.detach().double().requires_grad_(True), trainer.params)
+    consts = {k: None if v is None else v.double() for k, v in trainer.consts.items()}
+    loss, _ = forward(params, consts, covs.double(), x.double(),
+                      dataclasses.replace(trainer.config, conv5_kernel=False),
+                      noise=tuple(n.double() for n in noise), mesh=trainer.mesh)
+    grads = torch.autograd.grad(loss, [t for _, t in tree_items(params)])
+    if trainer.mesh is not None:
+        grads = all_reduce_grads(grads, trainer.mesh)
+    return float(loss.detach()), [g.cpu().numpy() for g in grads]
+
+
+def first_step(trainer, loader):
+    """The first batch of epoch 0 through a Trainer's own step, its loss
+    and gradients kept; before it, nothing applied, the same batch and
+    noise in float64 and in fp32 at the main path's inducing grids
+    (XU_RANGES).  Returns {"fp32", "float64", "main_grid"}: (loss,
+    gradients as numpy) each."""
+    from vaegam_tpu_torch.models.vaegam import draw_noise
+
+    loader.set_epoch(0)
+    covs, x = loader.gather(next(loader.iter_index_batches()))
+    noise = draw_noise(trainer.generator, len(covs), trainer.config, trainer.device)
+    xu = torch.stack([torch.linspace(lo, hi, trainer.config.num_inducing_pts,
+                                     device=trainer.device) for lo, hi in XU_RANGES])
+    out = {"main_grid": step_grads(trainer, covs, x, noise, xu),
+           "float64": float64_grads(trainer, covs, x, noise)}
+    loss, grads = step_grads(trainer, covs, x, noise)
+    trainer._apply_gradients(grads)
+    out["fp32"] = loss, grads
+    for k in ("fp32", "main_grid"):
+        out[k] = out[k][0], [g.cpu().numpy() for g in out[k][1]]
+    return out
+
+
+def load_arrays(path):
+    """The arrays np.savez wrote positionally, in order."""
+    with np.load(path) as f:
+        return [f[f"arr_{i}"] for i in range(len(f.files))]
+
+
+def grad_shares(got, want):
+    """Each gradient leaf's largest difference over its largest entry."""
+    return [float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-12))
+            for a, b in zip(got, want)]
+
+
+def _dp_step_rank(rank, coordinator, out_dir, results):
+    """Phase 9a, one of DP_RANKS ranks on the one card (gloo)."""
+    import vaegam_tpu_torch.ops.conv5 as conv5_mod
+    from vaegam_tpu_torch._device import configure_cuda_backends
+    from vaegam_tpu_torch.data import DeviceResidentLoader
+    from vaegam_tpu_torch.models import VAEGAMConfig
+    from vaegam_tpu_torch.parallel import init_multihost, leave, replica_digests
+    from vaegam_tpu_torch.train import Trainer
+    from vaegam_tpu_torch.utils.tree import tree_items
+
+    mesh = init_multihost(coordinator, DP_RANKS, rank, device="cuda:0")
+    try:
+        configure_cuda_backends()
+        config = VAEGAMConfig()
+        vols, covs, glm = dp_volumes(config)
+        trainer = Trainer(config, DP_XU_RANGES, glm, seed=SEED, enable_tb=False, mesh=mesh)
+        loader = DeviceResidentLoader.from_arrays(vols, covs, batch_size=BATCH, shuffle=True,
+                                                  seed=SEED, mesh=mesh)
+        with Conv5Shapes(conv5_mod) as shapes:
+            conv5_mod.conv5.launches = 0
+            first = first_step(trainer, loader)
+            full = [s for s in loader.iter_index_batches() if len(s) == BATCH]
+            losses, step_ms = [first["fp32"][0]], []
+            for i in range(1, DP_STEPS + DP_TIMED_STEPS):
+                c, x = loader.gather(full[i % len(full)])
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                losses.append(float(trainer.train_step(c, x)[0]))
+                step_ms.append(1e3 * (time.perf_counter() - t0))
+            launches = conv5_mod.conv5.launches
+        digests = replica_digests(trainer._leaves + trainer._mu + trainer._nu, mesh)
+        for k, (_, grads) in first.items():
+            np.savez(Path(out_dir) / f"{k}_{rank}.npz", *grads)
+        results.put(dict(rank=rank, backend=mesh.backend, losses=losses,
+                         first_losses={k: v[0] for k, v in first.items()},
+                         leaves=[p for p, _ in tree_items(trainer.params)],
+                         step_ms=step_ms[DP_STEPS - 1:], digests=digests,
+                         conv5_launches=launches, conv5_shapes=sorted(shapes.seen)))
+    finally:
+        leave(mesh)
+
+
+def spawn_ranks(target, args, n=DP_RANKS, timeout=900):
+    """Run target(rank, *args, results) in n spawned processes; returns
+    their results in rank order (each puts one dict with its "rank").  A
+    rank that fails fails the run."""
+    import multiprocessing
+
+    from vaegam_tpu_torch.parallel.mesh import free_port
+
+    ctx = multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    coordinator = f"localhost:{free_port()}"
+    procs = [ctx.Process(target=target, args=(r, coordinator, *args, results))
+             for r in range(n)]
+    for p in procs:
+        p.start()
+    out, deadline = [], time.monotonic() + timeout
+    try:
+        while len(out) < n:
+            try:
+                out.append(results.get(timeout=5))
+            except queue.Empty:  # a rank that died or hangs fails the phase
+                codes = [p.exitcode for p in procs]
+                if any(c not in (None, 0) for c in codes) or time.monotonic() > deadline:
+                    fail(f"{target.__name__}: {len(out)} of {n} ranks reported; exit "
+                         f"codes {codes}")
+    finally:
+        for p in procs:
+            p.join(timeout=120)
+            if p.is_alive():
+                p.terminate()
+                p.join()
+    if any(p.exitcode != 0 for p in procs):
+        fail(f"{target.__name__}: ranks exited with {[p.exitcode for p in procs]}")
+    return sorted(out, key=lambda r: r["rank"])
+
+
+def drive_dp_share_card(config):
+    """Phase 9a: DP_RANKS ranks share the card over gloo with CUDA tensors,
+    on phase 4c's volumes at global batch BATCH, against a single-process
+    Trainer from the same parameters and noise: their first step in
+    float64 (loss DP_F64_LOSS_RTOL, each gradient leaf DP_F64_GRAD_SHARE of
+    its largest entry) and in fp32 (the loss DP_LOSS_RTOL; the gradients
+    printed beside both steps' distance from float64, not held to a
+    bound: see DP_F64_GRAD_SHARE), DP_STEPS steps in all and the same
+    parameter bytes on every rank, then DP_TIMED_STEPS timed steps.  The
+    Trainers take the wide inducing grids DP_XU_RANGES; the same first
+    batch at the main path's grids is printed too.  Returns (rank results,
+    the phase's numbers)."""
+    from vaegam_tpu_torch.data import DeviceResidentLoader
+    from vaegam_tpu_torch.train import Trainer
+
+    vols, covs, glm = dp_volumes(config)
+    single = Trainer(config, DP_XU_RANGES, glm, seed=SEED, enable_tb=False, device="cuda")
+    loader = DeviceResidentLoader.from_arrays(vols, covs, batch_size=BATCH, shuffle=True,
+                                              seed=SEED, device="cuda")
+    want = first_step(single, loader)
+    del single, loader
+    out_dir = Path(tempfile.mkdtemp(prefix="vaegam_dp_"))
+    try:
+        t0 = time.perf_counter()
+        ranks = spawn_ranks(_dp_step_rank, (str(out_dir),))
+        phase_s = time.perf_counter() - t0
+        got = {k: load_arrays(out_dir / f"{k}_0.npz") for k in want}
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    names = ranks[0]["leaves"]
+    rel = {k: abs(ranks[0]["first_losses"][k] - want[k][0]) / abs(want[k][0]) for k in want}
+    f64_share = max(grad_shares(got["float64"], want["float64"][1]))
+    # the fp32 steps' gradients: against each other and against float64
+    vs = {"dp_vs_single": grad_shares(got["fp32"], want["fp32"][1]),
+          "single_vs_f64": grad_shares(want["fp32"][1], want["float64"][1]),
+          "dp_vs_f64": grad_shares(got["fp32"], want["float64"][1])}
+    worst = sorted(range(len(names)), key=lambda i: -vs["dp_vs_single"][i])[:4]
+    fp32_leaves = {names[i]: {k: v[i] for k, v in vs.items()} for i in worst}
+    main_shares = dict(sorted(zip(names, grad_shares(got["main_grid"], want["main_grid"][1])),
+                              key=lambda kv: -kv[1])[:3])
+    same_bytes = all(len(set(r["digests"])) == 1 for r in ranks)
+    step_ms = [statistics.median(r["step_ms"]) for r in ranks]
+    print(f"DP share-card ({DP_RANKS} ranks on one card, {ranks[0]['backend']}), first step "
+          f"against the single-process one: float64 loss rel {rel['float64']:.3e} (tol "
+          f"{DP_F64_LOSS_RTOL}), gradients max share {f64_share:.3e} (tol "
+          f"{DP_F64_GRAD_SHARE}); fp32 loss {ranks[0]['losses'][0]:.4f} vs "
+          f"{want['fp32'][0]:.4f} (rel {rel['fp32']:.3e}, tol {DP_LOSS_RTOL}), gradients max "
+          f"share {max(vs['dp_vs_single']):.3e}, from float64: two ranks "
+          f"{max(vs['dp_vs_f64']):.3e}, single process {max(vs['single_vs_f64']):.3e}; the "
+          f"leaves furthest apart {fp32_leaves}; at the main path's grids (fp32): loss rel "
+          f"{rel['main_grid']:.3e}, largest shares {main_shares}; losses by rank "
+          f"{[r['losses'][:DP_STEPS] for r in ranks]}; parameter and moment SHA-256 equal "
+          f"on every rank {same_bytes}; step ms by rank (median of {DP_TIMED_STEPS}) "
+          f"{step_ms}; conv5 launches by rank {[r['conv5_launches'] for r in ranks]}; "
+          f"phase {phase_s:.1f} s")
+    if ranks[0]["backend"] != "gloo":
+        fail("ranks on one card must take gloo")
+    if not (rel["float64"] <= DP_F64_LOSS_RTOL and f64_share <= DP_F64_GRAD_SHARE
+            and rel["fp32"] <= DP_LOSS_RTOL):
+        fail("the two-rank step disagrees with the single-process step")
+    if not (same_bytes and all(r["losses"] == ranks[0]["losses"] for r in ranks)
+            and np.isfinite(ranks[0]["losses"]).all()):
+        fail("the ranks' losses or parameters differ, or a loss is not finite")
+    # the first batch is forwarded twice through conv5: at both grids
+    if any(r["conv5_launches"] != 1 + DP_STEPS + DP_TIMED_STEPS for r in ranks):
+        fail("conv5 did not launch once per forward on every rank")
+    return ranks, dict(loss_rel=rel, float64_grad_share=f64_share,
+                       fp32_grad_share=max(vs["dp_vs_single"]),
+                       fp32_from_float64=dict(two_ranks=max(vs["dp_vs_f64"]),
+                                              single=max(vs["single_vs_f64"])),
+                       fp32_leaves=fp32_leaves, main_grid_grad_shares=main_shares,
+                       losses=ranks[0]["losses"], step_ms_by_rank=step_ms, phase_s=phase_s)
+
+
+def drive_dp_nccl_scan(conv5_mod, config):
+    """Phase 9b: a world of one over NCCL (what --data_parallel gives on a
+    one-card machine) under epoch_scan, on phase 4c's volumes: under
+    deterministic algorithms an eager Trainer and a replaying one train
+    SCAN_EPOCHS epochs bit for bit alike; the collectives a step makes are
+    captured into each width's graph; one profiled epoch each way: the NCCL
+    kernel events a step runs, the same replayed as eager, and conv5's
+    kernel events equal to its launches plus replays.  Returns (conv5 runs
+    by path, the phase's numbers)."""
+    from vaegam_tpu_torch.data import DeviceResidentLoader
+    from vaegam_tpu_torch.parallel import leave, make_data_mesh
+    from vaegam_tpu_torch.parallel.mesh import counts
+    from vaegam_tpu_torch.train import Trainer
+
+    vols, covs, glm = dp_volumes(config)
+    mesh = make_data_mesh("cuda")
+    try:
+        loader = DeviceResidentLoader.from_arrays(vols, covs, batch_size=BATCH, shuffle=True,
+                                                  seed=SEED, mesh=mesh)
+        steps = -(-SCAN_VOLS // BATCH)
+
+        def run(scan, epochs):
+            t = Trainer(config, XU_RANGES, glm, seed=SEED, enable_tb=False, mesh=mesh,
+                        epoch_scan=scan)
+            torch.cuda.synchronize()
+            conv5_mod.conv5.launches = conv5_mod.conv5.captured = 0
+            calls = counts.total()
+            losses = [t.train_epoch(loader) for _ in range(epochs)]
+            torch.cuda.synchronize()
+            return (t, losses, conv5_mod.conv5.launches, conv5_mod.conv5.captured,
+                    counts.total() - calls)
+
+        cublas_env = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+        os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+        torch.use_deterministic_algorithms(True)
+        torch.backends.cudnn.deterministic = True
+        try:
+            eager, e_losses, e_launches, _, e_calls = run(False, SCAN_EPOCHS)
+            replay, r_losses, r_launches, r_captured, r_calls = run(True, SCAN_EPOCHS)
+        finally:
+            torch.use_deterministic_algorithms(False)
+            torch.backends.cudnn.deterministic = False
+            if cublas_env is None:
+                del os.environ["CUBLAS_WORKSPACE_CONFIG"]
+            else:
+                os.environ["CUBLAS_WORKSPACE_CONFIG"] = cublas_env
+        (e_sha, e_mom, e_cnt), (r_sha, r_mom, r_cnt) = trainer_state(eager), \
+            trainer_state(replay)
+        same_moments = all(torch.equal(a, b) for a, b in zip(e_mom, r_mom))
+        forwards = SCAN_EPOCHS * steps
+        per_step = e_calls / forwards
+        replays = sum(replay.replays.values())
+        captured_calls = r_calls - (forwards - replays) * per_step
+        replay_runs = r_launches + (replays if r_captured else 0)
+        print(f"DP NCCL world 1, epoch_scan, deterministic: backend {mesh.backend}; losses "
+              f"eager {e_losses} replay {r_losses}; params SHA-256 {e_sha[:16]} / "
+              f"{r_sha[:16]}; moments equal {same_moments}; counters {e_cnt} / {r_cnt}; "
+              f"captures {replay.captures}, replays {replay.replays}; collectives "
+              f"{per_step:g} a step ({e_calls} eager), {captured_calls:g} recorded into "
+              f"the graphs; conv5 eager {e_launches}, replay path {replay_runs}")
+        if mesh.backend != "nccl":
+            fail("a world of one on a card must take NCCL")
+        if not (e_losses == r_losses and e_sha == r_sha and same_moments and e_cnt == r_cnt
+                and np.isfinite(e_losses).all()):
+            fail("the replayed DP epochs disagree with the eager ones")
+        if replay.captures != {BATCH: 1, SCAN_VOLS % BATCH: 1} or replays != forwards - 2:
+            fail("DP epoch_scan did not capture once a width and replay every later step")
+        if per_step != int(per_step) or captured_calls != 2 * per_step:
+            fail("the collectives of a step were not recorded into each width's graph")
+        if e_launches != forwards or replay_runs != forwards:
+            fail("conv5 did not run once a forward on the DP epoch_scan paths")
+        by_path = dict(dp_nccl_eager_det=e_launches, dp_nccl_replay_det=replay_runs)
+        out = dict(backend=mesh.backend, losses=e_losses, params_sha256=e_sha,
+                   collectives_per_step=per_step, captures=replay.captures,
+                   replays=replay.replays)
+        del eager, replay
+
+        # one profiled epoch each way, on the default backends
+        for scan in (False, True):
+            t = Trainer(config, XU_RANGES, glm, seed=SEED, enable_tb=False, mesh=mesh,
+                        epoch_scan=scan)
+            t.train_epoch(loader)                 # captures and cuDNN's search
+            replays0 = sum(t.replays.values())
+            conv5_mod.conv5.launches = 0
+            prof = profile_epoch(t, loader)
+            counted = conv5_mod.conv5.launches + sum(t.replays.values()) - replays0
+            key = "replay" if scan else "eager"
+            out[key] = dict(prof, conv5_counted=counted)
+            print(f"DP NCCL world 1, {key} epoch: {prof['epoch_s']:.4f} s, kernels "
+                  f"{prof['kernel_ms']:.2f} ms; NCCL kernel events {prof['nccl_events']}; "
+                  f"conv5 kernel events {prof['conv5_events']}, counted {counted}")
+            if prof["conv5_events"] != counted or counted != steps:
+                fail(f"conv5's profiled kernel events do not match its runs ({key})")
+            by_path[f"dp_nccl_{key}"] = counted
+            del t
+        if out["replay"]["nccl_events"] != out["eager"]["nccl_events"]:
+            fail("a replayed DP epoch ran other NCCL kernels than an eager one")
+    finally:
+        leave(mesh)
+    return by_path, out
+
+
+def _dp_cli_rank(rank, coordinator, argv, results):
+    """Phase 9c, one rank of the train CLI with --multihost on the card."""
+    import vaegam_tpu_torch.ops.conv5 as conv5_mod
+    from vaegam_tpu_torch.cli.train import main as cli_main
+
+    os.environ.update(VAEGAM_COORDINATOR=coordinator, VAEGAM_NUM_PROCESSES=str(DP_RANKS),
+                      VAEGAM_PROCESS_ID=str(rank))
+    with Conv5Shapes(conv5_mod) as shapes:
+        conv5_mod.conv5.launches = 0
+        trainer, _ = cli_main(list(argv) + ["--multihost"])
+        launches = conv5_mod.conv5.launches
+    results.put(dict(rank=rank, train=trainer.loss["train"], test=trainer.loss["test"],
+                     epoch_s=[trainer.epoch_seconds[e] for e in sorted(trainer.epoch_seconds)],
+                     stats=sorted(trainer.output_stats),
+                     recons=trainer.output_stats.get("recons"),
+                     conv5_launches=launches, conv5_shapes=sorted(shapes.seen)))
+
+
+def drive_dp_cli(study, single_losses):
+    """Phase 9c: the train CLI with --multihost, DP_RANKS ranks on the card
+    (gloo), on phase 5's study with phase 5's arguments for DP_CLI_EPOCHS
+    epochs and then the output stage: both ranks' epoch losses equal, within
+    DP_CLI_RTOL of phase 5's single-process epochs; the checkpoint, the GP
+    CSVs, the recon tree and the averaged maps written once (by rank 0).
+    Returns (rank results, the phase's numbers)."""
+    import pandas as pd
+
+    from vaegam_tpu_torch.utils import nifti
+
+    design, glm, root = study
+    save_dir = root / "dp"
+    argv = ["--train_csv", design, "--test_csv", design, "--glm_maps", glm,
+            "--save_dir", str(save_dir), "--batch-size", str(BATCH), "--seed", str(SEED),
+            "--test_freq", "1", "--save_freq", "1", "--epochs", str(DP_CLI_EPOCHS)]
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(_dp_cli_rank, (argv,))
+    phase_s = time.perf_counter() - t0
+    losses = [[r["train"][e] for e in range(DP_CLI_EPOCHS)] for r in ranks]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses[0], single_losses))
+    prefix = f"{DP_CLI_EPOCHS:03d}"
+    recon = save_dir / "reconstructions" / f"{prefix}_model_recons"
+    avg = save_dir / "reconstructions" / f"{prefix}_avg_model_recons"
+    n_recon = sum(len(files) for _, _, files in os.walk(recon))
+    n_avg = sum(len(files) for _, _, files in os.walk(avg))
+    grand = sorted(avg.glob("*_avg.nii"))
+    finite = all(np.isfinite(np.asarray(nifti.load(str(p)).dataobj)).all() for p in grand)
+    gp_csvs = sorted((save_dir / f"{prefix}_GP_plots").glob("*.csv"))
+    n_subjects = len(pd.read_csv(design).subjid.unique())
+    written = {"recons", "avg_maps_s", "gp_plots_s", "umap_backend"}
+    once = written <= set(ranks[0]["stats"]) and not any(
+        written & set(r["stats"]) for r in ranks[1:])
+    epoch_s = ranks[0]["epoch_s"]
+    print(f"DP CLI ({DP_RANKS} ranks on one card): losses by rank {losses}, test "
+          f"{[r['test'] for r in ranks]}; phase 5's single process {single_losses} (max rel "
+          f"{rel:.3e}, tol {DP_CLI_RTOL}); epoch s by rank {[r['epoch_s'] for r in ranks]}; "
+          f"files: checkpoint_001 {(save_dir / 'checkpoint_001.tar').exists()}, GP CSVs "
+          f"{len(gp_csvs)}, recon maps {n_recon}, averaged maps {n_avg} (grand {len(grand)}, "
+          f"finite {finite}); written by rank 0 alone {once}; conv5 launches by rank "
+          f"{[r['conv5_launches'] for r in ranks]}; phase {phase_s:.1f} s")
+    if not all(r["train"] == ranks[0]["train"] and r["test"] == ranks[0]["test"]
+               for r in ranks):
+        fail("the CLI's ranks printed different losses")
+    if not rel <= DP_CLI_RTOL:
+        fail("the two-rank CLI's losses miss the single-process CLI's")
+    if not ((save_dir / "checkpoint_001.tar").exists() and len(gp_csvs) == 6
+            and n_recon == N_STUDY * 10 and n_avg == 10 * (n_subjects + 1)
+            and len(grand) == 10 and finite and once):
+        fail("the two-rank CLI's outputs are missing or were not written once")
+    steps = -(-N_STUDY // BATCH)
+    forwards = 2 * DP_CLI_EPOCHS * steps + DP_CLI_EPOCHS + 2 * steps
+    if any(r["conv5_launches"] != forwards for r in ranks):
+        fail(f"conv5 did not launch once per forward on every rank ({forwards})")
+    shutil.rmtree(save_dir, ignore_errors=True)
+    return ranks, dict(losses=losses[0], test=ranks[0]["test"], single_losses=single_losses,
+                       max_rel=rel, epoch_s=epoch_s, steady_epoch_s=epoch_s[-1],
+                       recons=ranks[0]["recons"], phase_s=phase_s)
+
+
+def drive_data_parallel(conv5_mod, study, single_losses):
+    """Phases 9a-9c; returns (conv5 runs by path, the launch shapes the
+    ranks saw, the phases' numbers)."""
+    from vaegam_tpu_torch.models import VAEGAMConfig
+
+    config = VAEGAMConfig()
+    share, numbers = {}, {}
+    share_ranks, numbers["share_card"] = drive_dp_share_card(config)
+    by_path, numbers["nccl_world1_scan"] = drive_dp_nccl_scan(conv5_mod, config)
+    cli_ranks, numbers["cli"] = drive_dp_cli(study, single_losses)
+    shapes = set()
+    for tag, ranks in (("dp_share_card", share_ranks), ("dp_cli", cli_ranks)):
+        for r in ranks:
+            by_path[f"{tag}_rank{r['rank']}"] = r["conv5_launches"]
+            shapes |= {tuple(s) for s in r["conv5_shapes"]}
+    return by_path, shapes, numbers
+
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", default=None,
@@ -1602,30 +2085,40 @@ def main(argv=None) -> int:
     # 4-7. the train step; the train CLI on a NIfTI study, and its output
     # stage; the correctness oracle
     work = Path(tempfile.mkdtemp(prefix="vaegam_oracle_"))
+    study_root = Path(tempfile.mkdtemp(prefix="vaegam_study_"))
     try:
         with Conv5Shapes(conv5_mod) as shapes:
             step_launches, step_ms, all_ms, peak_gib = drive_main_path(conv5_mod,
                                                                        args.profile)
             f64_launches, f64 = drive_float64(conv5_mod)
             libs = host_libraries()
-            cli_launches, cli, outputs = drive_cli(conv5_mod, libs)
+            cli_launches, cli, outputs, study = drive_cli(conv5_mod, libs, study_root)
             oracle_launches, oracle, oracle_s = drive_oracle(conv5_mod, work)
             # after phase 7, which so finds cuDNN's algorithm cache as it
             # did before phase 4c existed (4c is the first to search B = 2)
             scan_launches, scan = drive_epoch_scan(conv5_mod)
             oracle_scan_launches, scan["oracle"] = drive_oracle_scan(conv5_mod, work)
+        shutil.rmtree(work, ignore_errors=True)
+
+        # 8. beta_maps on the card
+        betas = drive_beta_maps()
+
+        # 9. data parallel: two ranks on the card, NCCL at a world of one,
+        # the train CLI with --multihost on phase 5's study
+        with Conv5Shapes(conv5_mod) as dp_shapes:
+            dp_launches, rank_shapes, dp = drive_data_parallel(
+                conv5_mod, study, cli["fp32"]["train_losses"][:DP_CLI_EPOCHS])
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    unchecked = shapes.seen - set(CONV5_SHAPES.values())
-    print(f"conv5 launch shapes on the main path: {sorted(shapes.seen)}; all checked "
-          f"against the plain version in phase 3: {not unchecked}")
+        shutil.rmtree(study_root, ignore_errors=True)
+    seen = shapes.seen | dp_shapes.seen | rank_shapes
+    unchecked = seen - set(CONV5_SHAPES.values())
+    print(f"conv5 launch shapes on the main path and the ranks: {sorted(seen)}; all "
+          f"checked against the plain version in phase 3: {not unchecked}")
     if unchecked:
         fail(f"conv5 launched at shapes phase 3 did not check: {sorted(unchecked)}")
 
-    # 8. beta_maps on the card
-    betas = drive_beta_maps()
-
-    # 9. numbers
+    # 10. numbers
     kernel = {
         "name": "conv5", "route": "cuda",
         "source": "vaegam_tpu_torch/ops/csrc/conv5.cu",
@@ -1633,7 +2126,7 @@ def main(argv=None) -> int:
         "launches": cli_launches["cli_fp32"],
         "launches_by_path": dict(train_step=step_launches, float64_step=f64_launches,
                                  **scan_launches, **cli_launches, oracle=oracle_launches,
-                                 **oracle_scan_launches),
+                                 **oracle_scan_launches, **dp_launches),
         "max_abs_err": err,
         "ms": timing["ms"], "plain_ms": timing["plain_ms"], "bound_ms": timing["bound_ms"],
         "bound_by": timing["bound_by"], "library_ms": timing["library_ms"],
@@ -1654,8 +2147,9 @@ def main(argv=None) -> int:
     print(json.dumps({"oracle": dict(oracle, conv5_launches=oracle_launches,
                                      phase_s=oracle_s)}))
     print(json.dumps({"beta_maps": betas}))
+    print(json.dumps({"data_parallel": dp}))
     print(smi)
-    # 10. the last line
+    # 11. the last line
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -25,6 +25,7 @@ from vaegam_tpu_torch.cli.train import build_parser, main
 from vaegam_tpu_torch.data import (DataLoader, DeviceResidentLoader, PrefetchLoader,
                                    setup_data_loaders)
 from vaegam_tpu_torch.models import VAEGAMConfig
+from vaegam_tpu_torch.parallel.mesh import free_port
 from vaegam_tpu_torch.train import Trainer, load_checkpoint
 from vaegam_tpu_torch.utils.jax_params import params_to_jax
 from vaegam_tpu_torch.utils.stats import get_xu_ranges
@@ -154,18 +155,21 @@ def test_cli_trains_cholesky_and_x64_epsilon_on_the_cpu(study, tmp_path):
     assert saved["epsilon"].dtype == np.float64 and "qu_S_raw" in saved["gp"]
 
 
-@pytest.mark.parametrize("extra,item", [
-    (("--data_parallel",), "item 10"),
-    (("--multihost",), "item 10"),
-])
-def test_cli_refuses_unported_flags_before_any_work(tmp_path, extra, item):
-    """Refused before the CSVs are read: the paths given do not exist."""
+@pytest.mark.parametrize("extra", [("--data_parallel",), ("--multihost",)],
+                         ids=["data_parallel", "multihost"])
+def test_cli_data_parallel_flags_run(tmp_path, monkeypatch, extra):
+    """Each flag joins a one-rank group (``--multihost`` from the VAEGAM_*
+    variables) and main goes on to read the CSVs, whose paths do not exist;
+    the group is left again."""
+    monkeypatch.setenv("VAEGAM_COORDINATOR", f"localhost:{free_port()}")
+    monkeypatch.setenv("VAEGAM_NUM_PROCESSES", "1")
+    monkeypatch.setenv("VAEGAM_PROCESS_ID", "0")
     argv = ["--train_csv", str(tmp_path / "missing.csv"),
             "--test_csv", str(tmp_path / "missing.csv"), "--device", "cpu",
-            "--save_dir", str(tmp_path / "never")]
-    with pytest.raises(NotImplementedError, match=item):
+            "--save_dir", str(tmp_path / "out")]
+    with pytest.raises(FileNotFoundError, match="missing.csv"):
         main(argv + list(extra))
-    assert not (tmp_path / "never").exists()
+    assert not torch.distributed.is_initialized()
 
 
 def test_parser_accepts_every_jax_flag():

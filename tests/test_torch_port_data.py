@@ -27,6 +27,7 @@ from vaegam_tpu.utils import stats as jax_stats
 from vaegam_tpu_torch.data import (DataLoader, DeviceResidentLoader, FMRIDataset,
                                    GLOBAL_SCALE, setup_data_loaders,
                                    setup_device_loaders)
+from vaegam_tpu_torch.parallel import DataMesh
 from vaegam_tpu_torch.utils import nifti, nifti_native, stats
 
 
@@ -223,11 +224,33 @@ def test_setup_device_loaders_shares_cache_and_picks_float16(study, tmp_path, ca
 
 
 def test_row_sharding_is_refused(study):
+    """Row sharding iterates the rows [shard_index::num_shards], as JAX's
+    loaders do (the host loader and the device cache: the same batches for
+    two epochs, num_samples the dataset's length), and is refused under a
+    multi-process mesh, as JAX refuses it: each rank's cache must hold the
+    same rows."""
     _, csv = study
-    with pytest.raises(NotImplementedError, match="item 10"):
-        DataLoader(FMRIDataset(csv), 4, shard_index=1, num_shards=2)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        setup_device_loaders(train_csv=csv, test_csv=csv, num_shards=2, device="cpu")
+    ds, jds = FMRIDataset(csv), JaxDataset(csv)
+    mine = setup_device_loaders(batch_size=2, train_csv=csv, test_csv=csv, seed=3,
+                                shard_index=1, num_shards=2, device="cpu")
+    loaders = [(DataLoader(ds, 2, shuffle=True, seed=3, shard_index=1, num_shards=2),
+                JaxDataLoader(jds, 2, shuffle=True, seed=3, shard_index=1, num_shards=2)),
+               (mine["Shuffled_train"],
+                JaxDeviceLoader(jds, 2, shuffle=True, seed=3, shard_index=1, num_shards=2))]
+    for port, jax_loader in loaders:
+        assert port.num_samples == jax_loader.num_samples == len(ds)
+        assert len(port) == len(jax_loader) == 3
+        for epoch in (0, 1):
+            port.set_epoch(epoch)
+            jax_loader.set_epoch(epoch)
+            for a, b in zip(port, jax_loader, strict=True):
+                np.testing.assert_array_equal(a["vol_num"], np.asarray(b["vol_num"]))
+                np.testing.assert_array_equal(np.asarray(a["volume"]), np.asarray(b["volume"]))
+    two_ranks = DataMesh(0, 2, "gloo", torch.device("cpu"))
+    with pytest.raises(ValueError, match="multi-process mesh"):
+        setup_device_loaders(train_csv=csv, test_csv=csv, num_shards=2, mesh=two_ranks)
+    with pytest.raises(ValueError, match="multi-process mesh"):
+        DeviceResidentLoader(ds, num_shards=2, mesh=two_ranks)
 
 
 # ---------------------------------------------------------------------------

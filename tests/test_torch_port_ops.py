@@ -307,7 +307,8 @@ def test_conv5_kernel_matches_plain_on_card(name):
 
 def _port_sources():
     return (sorted((ROOT / "vaegam_tpu_torch").rglob("*.py"))
-            + [ROOT / "chip_smoke.py", ROOT / "oracle_study.py"])
+            + [ROOT / "chip_smoke.py", ROOT / "oracle_study.py",
+               ROOT / "tests" / "torch_dp_worker.py"])
 
 
 def test_port_sources_import_neither_jax_nor_the_jax_package():
@@ -335,7 +336,8 @@ def test_port_imports_with_jax_blocked():
             "vaegam_tpu_torch.tools, vaegam_tpu_torch.tools.control_experiment, "
             "vaegam_tpu_torch.utils.prng, vaegam_tpu_torch.data.prefetch, "
             "vaegam_tpu_torch.utils.torch_port, vaegam_tpu_torch.cli.import_torch_ckpt, "
-            "vaegam_tpu_torch.cli.export_torch_ckpt\n"
+            "vaegam_tpu_torch.cli.export_torch_ckpt, vaegam_tpu_torch.parallel, "
+            "vaegam_tpu_torch.parallel.mesh, vaegam_tpu_torch.parallel.dryrun\n"
             "assert 'triton' not in sys.modules\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,

@@ -25,6 +25,7 @@ from vaegam_tpu_torch.cli.train import main
 from vaegam_tpu_torch.data import (FMRIDataset, PrefetchLoader, setup_prefetch_loaders,
                                    wide_eval_view)
 from vaegam_tpu_torch.models import VAEGAMConfig
+from vaegam_tpu_torch.parallel import DataMesh
 from vaegam_tpu_torch.train import Trainer
 
 from torch_port_common import THIN
@@ -104,10 +105,19 @@ def test_wide_eval_view_keeps_the_prefetch_wire(study, wire):
 
 
 def test_mesh_and_row_sharding_are_refused(study):
-    with pytest.raises(NotImplementedError, match="item 10"):
-        PrefetchLoader(FMRIDataset(study), mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        setup_prefetch_loaders(train_csv=study, test_csv=study, num_shards=2, device="cpu")
+    """Row sharding under a multi-process mesh is refused, as JAX refuses
+    it; alone it iterates JAX's rows [shard_index::num_shards], and a mesh
+    alone is taken."""
+    two_ranks = DataMesh(0, 2, "gloo", torch.device("cpu"))
+    with pytest.raises(ValueError, match="multi-process mesh"):
+        PrefetchLoader(FMRIDataset(study), mesh=two_ranks, num_shards=2)
+    with pytest.raises(ValueError, match="multi-process mesh"):
+        setup_prefetch_loaders(train_csv=study, test_csv=study, num_shards=2, mesh=two_ranks)
+    assert PrefetchLoader(FMRIDataset(study), mesh=two_ranks).device == torch.device("cpu")
+    mine = PrefetchLoader(FMRIDataset(study), 5, shard_index=1, num_shards=2, device="cpu")
+    theirs = JaxPrefetchLoader(JaxDataset(study), 5, shard_index=1, num_shards=2)
+    assert mine.num_samples == theirs.num_samples and len(mine) == len(theirs) == 2
+    _assert_same_batches(_batches(mine, 0), _batches(theirs, 0))
 
 
 def test_trainer_takes_prefetched_tensors_as_they_are(study):

@@ -14,8 +14,17 @@ optional torch.profiler trace.  ``--epoch_scan`` replays a CUDA graph of
 each batch width's gather-fused step on device-cache epochs (the Trainer's
 ``epoch_scan``; on the CPU the steps run eagerly).
 
-Not ported yet, and refused before any work when set away from their
-defaults: data parallelism.
+Data parallel, as the JAX CLI's flags: ``--multihost`` joins the group
+that ``VAEGAM_COORDINATOR`` / ``VAEGAM_NUM_PROCESSES`` /
+``VAEGAM_PROCESS_ID`` describe (one process per rank, each started with
+the same arguments) and implies ``--data_parallel``; ``--data_parallel``
+alone runs one rank per visible card, this process being rank 0 and the
+others started by it (one card, or ``--device`` naming one device, gives a
+world of one).  A rank's device is ``cuda:(rank mod visible cards)``
+unless ``--device`` names one.  Every rank walks the same global batches
+and trains on its share of each (``vaegam_tpu_torch.parallel``); the
+loaders split the volumes, the losses printed are the global ones, and
+rank 0 alone writes checkpoints, TensorBoard and the output stage's files.
 
     python -m vaegam_tpu_torch.cli.train --train_csv T --test_csv E \\
         --glm_maps G --save_dir S --epochs N --batch-size 32
@@ -24,7 +33,9 @@ defaults: data parallelism.
 from __future__ import annotations
 
 import argparse
+import multiprocessing
 import os
+import sys
 import time
 
 import pandas as pd
@@ -36,15 +47,10 @@ from ..data import (setup_data_loaders, setup_device_loaders, setup_prefetch_loa
 from ..data.device_cache import DEFAULT_MAX_BYTES
 from ..models import VAEGAMConfig
 from ..outputs import mk_avg_maps, mk_single_volumes, plot_GPs, project_latent
+from ..parallel import init_multihost, leave, make_data_mesh
+from ..parallel.mesh import free_port
 from ..train import Trainer
 from ..utils.stats import get_xu_ranges, str2bool
-
-# flags whose non-default values wait for a later module of the port
-_NOT_YET = (
-    ("data_parallel", False, "data parallel, ROADMAP module item 10"),
-    ("multihost", False, "data parallel, ROADMAP module item 10"),
-)
-
 
 def build_parser():
     parser = argparse.ArgumentParser(description="user args for vae_gam model")
@@ -94,7 +100,7 @@ def build_parser():
                         help="Log per-batch map/beta TB figures every N batches (0 = off). The reference logs these EVERY batch; the default 50 keeps the same TB artifact families as a sampled subset.")
     parser.add_argument("--data_parallel", type=str2bool, nargs="?", const=True,
                         default=False,
-                        help="Shard batches over all visible devices (not ported yet).")
+                        help="Shard batches over all visible devices (1D data mesh).")
     parser.add_argument("--nf", type=int, metavar="N", default=8,
                         help="Conv feature multiplier (reference default 8; exposed for small-scale runs).")
     parser.add_argument("--num_latents", type=int, metavar="N", default=32,
@@ -106,7 +112,7 @@ def build_parser():
                         help="Volume grid (x y z). Default is the reference's 41 49 35; e.g. 91 109 91 for MNI-grid volumes.")
     parser.add_argument("--multihost", type=str2bool, nargs="?", const=True,
                         default=False,
-                        help="Multi-host training (not ported yet).")
+                        help="Join a multi-process data-parallel group (implies --data_parallel). Every process walks the same seeded global batch order and trains on its own rows of every batch. Group via env: VAEGAM_COORDINATOR / VAEGAM_NUM_PROCESSES / VAEGAM_PROCESS_ID.")
     parser.add_argument("--qu_s_cholesky", type=str2bool, nargs="?",
                         const=True, default=False,
                         help="Parameterize each GP posterior covariance as L L^T (PSD by construction).")
@@ -148,19 +154,61 @@ def build_parser():
     return parser
 
 
-def check_ported(args) -> None:
-    """Refuse, before any work, what this port cannot run yet."""
-    for name, default, where in _NOT_YET:
-        if getattr(args, name) != default:
-            raise NotImplementedError(f"--{name} {getattr(args, name)} is not "
-                                      f"ported yet ({where})")
+def _rank_main(argv, coordinator: str, world: int, rank: int) -> None:
+    """A started rank of ``--data_parallel``: ``main`` with ``--multihost``."""
+    os.environ.update(VAEGAM_COORDINATOR=coordinator, VAEGAM_NUM_PROCESSES=str(world),
+                      VAEGAM_PROCESS_ID=str(rank))
+    main(list(argv) + ["--multihost"])
+
+
+def _join_group(args, argv):
+    """The data-parallel mesh (None without the flags) and the ranks this
+    process started.  ``--data_parallel`` alone on a machine of N > 1 cards
+    (no ``--device`` index) starts ranks 1..N-1 of a world of N."""
+    if args.multihost:
+        args.data_parallel = True
+        return init_multihost(device=args.device), []
+    if not args.data_parallel:
+        return None, []
+    device = resolve_device(args.device)
+    world = torch.cuda.device_count() if device.type == "cuda" and device.index is None else 1
+    if world == 1:
+        return make_data_mesh(device), []
+    coordinator = f"localhost:{free_port()}"
+    ctx = multiprocessing.get_context("spawn")
+    ranks = [ctx.Process(target=_rank_main, args=(argv, coordinator, world, r))
+             for r in range(1, world)]
+    for p in ranks:
+        p.start()
+    return init_multihost(coordinator, world, 0, args.device), ranks
 
 
 def main(argv=None):
     """Run the CLI; returns (trainer, loaders) for callers that drive it."""
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
-    check_ported(args)
-    device = resolve_device(args.device)
+    owns_group = not torch.distributed.is_initialized()
+    mesh, ranks = _join_group(args, argv)
+    try:
+        out = _run(args, mesh)
+        if owns_group:
+            leave(mesh)  # after a barrier: every rank is done with its files
+        return out
+    finally:
+        if owns_group and torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()  # a rank failed: no barrier
+        for p in ranks:
+            p.join()
+        failed = [p.exitcode for p in ranks if p.exitcode != 0]
+        if failed:
+            raise RuntimeError(f"data-parallel ranks exited with {failed}")
+
+
+def _run(args, mesh):
+    device = resolve_device(args.device) if mesh is None else mesh.device
+    if mesh is not None:
+        print(f"[data parallel] rank {mesh.rank} of {mesh.world} on {device} "
+              f"({mesh.backend})")
     if args.save_dir == "":
         args.save_dir = os.getcwd()
     os.makedirs(args.save_dir, exist_ok=True)
@@ -176,12 +224,14 @@ def main(argv=None):
         try:
             loaders_dict = setup_device_loaders(max_bytes=max_bytes,
                                                 cache_dtype=args.cache_dtype,
-                                                device=device, **loader_kwargs)
+                                                device=device, mesh=mesh,
+                                                **loader_kwargs)
         except ValueError as e:
             print(f"[device cache disabled] {e} — using the pipelined "
                   "host->device prefetch loader")
             loaders_dict = setup_prefetch_loaders(transfer_dtype=args.stream_dtype,
-                                                  device=device, **loader_kwargs)
+                                                  device=device, mesh=mesh,
+                                                  **loader_kwargs)
         else:
             sec = loaders_dict["Shuffled_train"].build_seconds
             print(f"[device cache] {loaders_dict['Shuffled_train'].num_samples} "
@@ -213,7 +263,7 @@ def main(argv=None):
         seed=args.seed, log_figs_every=args.log_figs_every,
         skip_nonfinite_updates=args.skip_nonfinite_updates,
         grad_clip=args.grad_clip, recon_wire_dtype=args.recon_wire_dtype,
-        epoch_scan=args.epoch_scan, device=device,
+        epoch_scan=args.epoch_scan, device=device, mesh=mesh,
     )
 
     if args.from_ckpt:

@@ -35,5 +35,5 @@ def wide_eval_view(loader, img_dim, width=128, max_map_bytes=1.5 * 2**30):
     if isinstance(loader, PrefetchLoader):
         return PrefetchLoader(loader.dataset, eval_bs, shuffle=False, depth=loader.depth,
                               workers=loader.workers, transfer_dtype=loader.transfer_dtype,
-                              device=loader.device)
+                              device=loader.device, mesh=loader.mesh)
     return DataLoader(loader.dataset, eval_bs, shuffle=False)

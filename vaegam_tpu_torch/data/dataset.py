@@ -10,9 +10,11 @@ with the same sample contract, CSV schema and batch order:
     x, y, z, rot_x, rot_y, rot_z, sex];
   * each 4D file is decoded once and memoized in a bounded LRU;
   * the shuffle after ``set_epoch(k)`` is ``np.random.default_rng((seed, k))``.
-Batches are numpy arrays; the Trainer moves them to the card.  Row sharding
-across data-parallel processes (``shard_index``/``num_shards``) is not
-ported yet (ROADMAP module item 10): the arguments keep their defaults.
+Batches are numpy arrays of the global batch; the Trainer moves them to
+the card (a data-parallel Trainer its own rows of the volumes).
+``shard_index``/``num_shards`` restrict a loader to the rows
+[shard_index::num_shards], as in the JAX package; its ``num_samples``
+stays the dataset's length, the per-epoch loss denominator.
 """
 
 from __future__ import annotations
@@ -33,12 +35,13 @@ GLOBAL_SCALE = 3284.5
 _COVARIATE_COLS = 4 + np.arange(8)  # task,x,y,z,rot_x,rot_y,rot_z,sex (iloc)
 
 
-def check_no_row_sharding(shard_index: int, num_shards: int) -> None:
-    """Row sharding waits for data parallelism; refuse anything but one shard."""
-    if shard_index != 0 or num_shards != 1:
-        raise NotImplementedError(
-            "row sharding (shard_index/num_shards) is not ported yet "
-            "(data parallel, ROADMAP module item 10)")
+def check_row_sharding(mesh, num_shards: int) -> None:
+    """Refuse row sharding under a multi-process mesh (JAX's rule)."""
+    if mesh is not None and mesh.world > 1 and num_shards > 1:
+        raise ValueError(
+            "row sharding (num_shards>1) cannot compose with a multi-process "
+            "mesh: every rank must hold the same rows; each rank holds the "
+            "whole dataset instead")
 
 
 class _VolumeCache:
@@ -131,6 +134,13 @@ class FMRIDataset:
             "vol_num": np.int64(vol_num),
         }
 
+    def meta(self, idxs: np.ndarray) -> Dict[str, np.ndarray]:
+        """The rows' covariates, subject indices and volume numbers, without
+        decoding a volume."""
+        return {"covariates": self._covariates[idxs],
+                "subjid": self._subj_idx[idxs],
+                "vol_num": self._vol_nums[idxs]}
+
     def prewarm(self, rows: np.ndarray = None, n_threads: int = 0) -> None:
         """Decode every distinct subject file for `rows` in ONE parallel pass
         (the native thread pool), growing the LRU to hold them all until
@@ -202,7 +212,8 @@ class DataLoader:
     shuffle=True reshuffles every epoch, torch RandomSampler semantics as in
     the reference (DataClass_GP.py:77-87); after ``set_epoch`` the order is
     a pure function of (seed, epoch), so a resumed run repeats an unbroken
-    run's order.
+    run's order.  ``shard_index``/``num_shards`` iterate the rows
+    [shard_index::num_shards] only.
     """
 
     def __init__(
@@ -215,7 +226,6 @@ class DataLoader:
         shard_index: int = 0,
         num_shards: int = 1,
     ):
-        check_no_row_sharding(shard_index, num_shards)
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -223,9 +233,10 @@ class DataLoader:
         self._rng = np.random.default_rng(seed)
         self._seed = seed
         self._epoch = None
+        self._rows = np.arange(len(dataset))[shard_index::num_shards]
 
     def __len__(self) -> int:
-        n = len(self.dataset)
+        n = len(self._rows)
         if self.drop_last:
             return n // self.batch_size
         return (n + self.batch_size - 1) // self.batch_size
@@ -247,7 +258,7 @@ class DataLoader:
         return len(self.dataset)
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
-        order = np.arange(len(self.dataset))
+        order = self._rows.copy()
         if self.shuffle:
             self._epoch_rng().shuffle(order)
         for start in range(0, len(order), self.batch_size):
@@ -268,13 +279,13 @@ def setup_data_loaders(
 ) -> Dict[str, DataLoader]:
     """Three loaders keyed exactly like the reference (DataClass_GP.py:73-89):
     Shuffled_train (training), UnShuffled_train (plots/recons), test."""
-    check_no_row_sharding(shard_index, num_shards)
     train_dataset = FMRIDataset(train_csv)
     test_dataset = FMRIDataset(test_csv)
+    shard = dict(shard_index=shard_index, num_shards=num_shards)
     return {
         "Shuffled_train": DataLoader(train_dataset, batch_size,
-                                     shuffle=shuffle[0], seed=seed),
+                                     shuffle=shuffle[0], seed=seed, **shard),
         "UnShuffled_train": DataLoader(train_dataset, batch_size,
-                                       shuffle=shuffle[1]),
-        "test": DataLoader(test_dataset, batch_size, shuffle=shuffle[2]),
+                                       shuffle=shuffle[1], **shard),
+        "test": DataLoader(test_dataset, batch_size, shuffle=shuffle[2], **shard),
     }

@@ -1,11 +1,19 @@
 """Device-resident dataset: all volumes and covariates on the card at once.
 
-Counterpart of ``vaegam_tpu.data.device_cache`` without its mesh and
-multi-process branches (ROADMAP module item 10): the whole (N, D, H, W)
+Counterpart of ``vaegam_tpu.data.device_cache``: the whole (N, D, H, W)
 volume stack and the (N, C) covariates are decoded on the host, uploaded
 once, and each step gathers its batch on the device by index.  The batch
 order is the JAX loader's: ``np.random.default_rng((seed, epoch))`` after
 ``set_epoch``, so both packages visit the same batches.
+
+Data parallel (``mesh``): every rank decodes and holds the WHOLE cache, as
+the JAX loader replicates it over its mesh, and walks the same seeded
+order; a gather returns the global batch's covariates and this rank's
+block of its volumes (``parallel.batch_rows``; a batch the ranks do not
+divide splits unevenly, as XLA splits the JAX loader's in-jit gather).
+Row sharding (``shard_index``/``num_shards``: the rows
+[shard_index::num_shards] only) is refused under a multi-process mesh, as
+in the JAX package: each rank's cache must hold the same rows.
 
 Cache precision: ``cache_dtype`` "bfloat16"/"float16" stores the volumes at
 half the bytes (round to nearest even) and ``gather`` restores float32.
@@ -24,7 +32,8 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
-from .dataset import FMRIDataset, check_no_row_sharding
+from ..parallel.mesh import batch_rows
+from .dataset import FMRIDataset, check_row_sharding
 
 DEFAULT_MAX_BYTES = 4 << 30  # refuse to cache datasets larger than 4 GiB
 
@@ -32,8 +41,10 @@ _CACHE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
                  "float16": torch.float16}
 
 
-def _cache_bytes(dataset: FMRIDataset, cache_dtype: str) -> int:
-    return len(dataset) * dataset[0]["volume"].size * _CACHE_DTYPES[cache_dtype].itemsize
+def _cache_bytes(dataset: FMRIDataset, cache_dtype: str, shard_index=0,
+                 num_shards=1) -> int:
+    rows = len(range(shard_index, len(dataset), num_shards))
+    return rows * dataset[0]["volume"].size * _CACHE_DTYPES[cache_dtype].itemsize
 
 
 class DeviceResidentLoader:
@@ -42,7 +53,8 @@ class DeviceResidentLoader:
     and vol_num as host numpy for the output writers), and hands
     index batches to the Trainer's gather-fused step
     (``iter_index_batches`` + ``gather``, or ``upload_indices`` +
-    ``gather_index`` under ``epoch_scan``).
+    ``gather_index`` under ``epoch_scan``).  Under a ``mesh`` a batch's
+    volume holds this rank's rows of it (module docstring).
 
     ``build_seconds`` records the cold start: the dataset's host decode
     (budget check included) and the upload.
@@ -60,10 +72,12 @@ class DeviceResidentLoader:
         num_shards: int = 1,
         cache_dtype: str = "float32",
         device=None,
+        mesh=None,
         _arrays: Optional[dict] = None,
     ):
-        check_no_row_sharding(shard_index, num_shards)
-        device = resolve_device(device)
+        check_row_sharding(mesh, num_shards)
+        device = resolve_device(device if mesh is None else mesh.device)
+        self.mesh = mesh
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -73,10 +87,16 @@ class DeviceResidentLoader:
         self._epoch: Optional[int] = None
         self.cache_dtype = _CACHE_DTYPES[str(cache_dtype)]
 
+        # the per-epoch loss denominator: the dataset's length, whatever rows
+        # this cache holds (JAX's num_samples)
+        self.num_samples = len(dataset if _arrays is None else _arrays["volume"])
+        rows = np.arange(self.num_samples)[shard_index::num_shards]
         if _arrays is not None:  # from_arrays path
             host = _arrays
+            if num_shards > 1:
+                host = {k: np.asarray(v)[rows] for k, v in host.items()}
         else:
-            nbytes = _cache_bytes(dataset, str(cache_dtype))
+            nbytes = _cache_bytes(dataset, str(cache_dtype), shard_index, num_shards)
             if nbytes > max_bytes:
                 raise ValueError(
                     f"dataset needs {nbytes >> 20} MiB on device, over the "
@@ -85,7 +105,7 @@ class DeviceResidentLoader:
                 )
             # chunked parallel decode (native thread pool): 16 subject files
             # at a time, released once their rows land in the stacked array
-            host = dataset.gather(np.arange(len(dataset)), chunk_files=16)
+            host = dataset.gather(rows, chunk_files=16)
         t1 = time.perf_counter()
         vols = torch.from_numpy(np.ascontiguousarray(host["volume"], np.float32))
         self.vols = vols.to(self.cache_dtype).to(device)
@@ -136,11 +156,6 @@ class DeviceResidentLoader:
             return n // self.batch_size
         return (n + self.batch_size - 1) // self.batch_size
 
-    @property
-    def num_samples(self) -> int:
-        """Sample count: the per-epoch loss denominator."""
-        return len(self.vols)
-
     def set_epoch(self, epoch: int):
         """Make the next shuffle a pure function of (seed, epoch)."""
         self._epoch = int(epoch)
@@ -162,14 +177,17 @@ class DeviceResidentLoader:
             yield sel
 
     def gather(self, sel):
-        """(covariates, volumes as float32) rows `sel`, gathered on the device."""
+        """(covariates, volumes as float32) of rows `sel`, gathered on the
+        device; under a mesh the covariates of all of them and the volumes
+        of this rank's block."""
         return self.gather_index(torch.as_tensor(np.asarray(sel), device=self.vols.device))
 
     def gather_index(self, idx):
         """:meth:`gather` for rows given as an index tensor on the cache's
         device."""
+        lo, hi = batch_rows(len(idx), self.mesh, uneven=True)
         return (self.covs.index_select(0, idx),
-                self.vols.index_select(0, idx).float())
+                self.vols.index_select(0, idx[lo:hi]).float())
 
     def upload_indices(self, sels):
         """An epoch's index batches, concatenated in order, as one int64
@@ -190,7 +208,7 @@ class DeviceResidentLoader:
 
 def setup_device_loaders(batch_size=32, train_csv="", test_csv="", seed=0,
                          shard_index=0, num_shards=1, cache_dtype="auto",
-                         max_bytes=DEFAULT_MAX_BYTES, device=None):
+                         max_bytes=DEFAULT_MAX_BYTES, device=None, mesh=None):
     """Device-resident analogue of ``setup_data_loaders`` (same keys).
 
     cache_dtype="auto" caches float32 when both datasets fit ``max_bytes``
@@ -200,16 +218,16 @@ def setup_device_loaders(batch_size=32, train_csv="", test_csv="", seed=0,
     loaders.  Raises ValueError when nothing fits (callers fall back to the
     streaming loader).
     """
-    check_no_row_sharding(shard_index, num_shards)
-    device = resolve_device(device)
+    check_row_sharding(mesh, num_shards)
     train_dataset = FMRIDataset(train_csv)
     test_dataset = FMRIDataset(test_csv)
     dtypes = ["float32", "float16"] if cache_dtype == "auto" else [cache_dtype]
+    shard = dict(shard_index=shard_index, num_shards=num_shards)
     for dt in dtypes:
-        if max(_cache_bytes(train_dataset, dt),
-               _cache_bytes(test_dataset, dt)) > max_bytes:
+        if max(_cache_bytes(train_dataset, dt, **shard),
+               _cache_bytes(test_dataset, dt, **shard)) > max_bytes:
             continue
-        kw = dict(cache_dtype=dt, max_bytes=max_bytes, device=device)
+        kw = dict(cache_dtype=dt, max_bytes=max_bytes, device=device, mesh=mesh, **shard)
         shuffled = DeviceResidentLoader(train_dataset, batch_size, shuffle=True,
                                         seed=seed, **kw)
         if os.path.realpath(train_csv) == os.path.realpath(test_csv):

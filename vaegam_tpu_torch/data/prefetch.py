@@ -1,7 +1,6 @@
 """Pipelined host->device loader for datasets beyond the device cache.
 
-Counterpart of ``vaegam_tpu.data.prefetch`` without its mesh and
-multi-process branches (ROADMAP module item 10): a worker thread decodes
+Counterpart of ``vaegam_tpu.data.prefetch``: a worker thread decodes
 future batches (``FMRIDataset.gather``) into pinned host buffers and copies
 them to the card on a side CUDA stream while the card computes on the
 current one.  At most ``depth`` batches are in flight.
@@ -23,6 +22,15 @@ Batches, order and values are the JAX loader's: the shuffle after
 as host numpy.  On the CPU (``device="cpu"``) the same batches come
 without streams or pinned memory.  Like the JAX loader it has no
 ``iter_index_batches``: the Trainer feeds its steps one batch at a time.
+
+Data parallel (``mesh``): every rank walks the same global batch order and
+decodes and copies ONLY its own block of each global batch's volumes
+(``parallel.global_batch_from_rows``, as the JAX loader assembles a global
+array from per-shard callbacks); the batch's covariates, subject indices
+and volume numbers are the global batch's, read without a decode.  A batch
+the ranks do not divide is refused, as the JAX loader refuses it, and so
+is row sharding (``shard_index``/``num_shards``) under a multi-process
+mesh.
 """
 
 from __future__ import annotations
@@ -35,7 +43,8 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
-from .dataset import FMRIDataset, check_no_row_sharding
+from ..parallel.mesh import global_batch_from_rows
+from .dataset import FMRIDataset, check_row_sharding
 
 _WIRE = {"float32": None, "float16": torch.float16, "bfloat16": torch.bfloat16}
 
@@ -45,11 +54,11 @@ class _PinnedSets:
     is handed out again only after the copy that last read it has
     completed."""
 
-    def __init__(self, count: int, vol_shape, n_cov: int, wire):
+    def __init__(self, count: int, batch: int, vol_shape, n_cov: int, wire):
         self._free: "queue.Queue" = queue.Queue()
         for _ in range(count):
             self._free.put((torch.empty(vol_shape, dtype=wire, pin_memory=True),
-                            torch.empty((vol_shape[0], n_cov), pin_memory=True), None))
+                            torch.empty((batch, n_cov), pin_memory=True), None))
 
     def claim(self):
         vols, covs, event = self._free.get()
@@ -63,8 +72,9 @@ class _PinnedSets:
 
 class PrefetchLoader:
     """JAX's arguments and defaults (``depth=3``, ``workers=1``,
-    ``transfer_dtype``, ``drop_last``), plus ``device`` (the card unless
-    given).  ``mesh`` and row sharding wait for data parallelism."""
+    ``transfer_dtype``, ``drop_last``, ``mesh``, ``shard_index``/
+    ``num_shards``), plus ``device`` (the card unless given; the mesh's
+    device under a mesh)."""
 
     def __init__(
         self,
@@ -81,10 +91,7 @@ class PrefetchLoader:
         transfer_dtype: str = "float32",
         device=None,
     ):
-        if mesh is not None:
-            raise NotImplementedError("a mesh is not ported yet (data parallel, "
-                                      "ROADMAP module item 10)")
-        check_no_row_sharding(shard_index, num_shards)
+        check_row_sharding(mesh, num_shards)
         if depth < 1:
             raise ValueError(f"depth {depth}: at least 1")
         if transfer_dtype not in _WIRE:
@@ -96,7 +103,9 @@ class PrefetchLoader:
         self.depth = depth
         self.workers = workers
         self.transfer_dtype = transfer_dtype
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = resolve_device(device if mesh is None else mesh.device)
+        self._rows = np.arange(len(dataset))[shard_index::num_shards]
         self._wire = _WIRE[transfer_dtype]
         self._rng = np.random.default_rng(seed)
         self._seed = seed
@@ -105,7 +114,7 @@ class PrefetchLoader:
         self._copy_stream = None
 
     def __len__(self) -> int:
-        n = len(self.dataset)
+        n = len(self._rows)
         if self.drop_last:
             return n // self.batch_size
         return (n + self.batch_size - 1) // self.batch_size
@@ -134,20 +143,24 @@ class PrefetchLoader:
         return torch.from_numpy(vols).to(torch.bfloat16)
 
     def _make_batch(self, sel: np.ndarray) -> Dict[str, object]:
-        """Decode rows `sel`; on the card, copy them over on the copy stream
-        and record the copy's event (the consumer waits on it)."""
-        host = self.dataset.gather(sel)
-        vols = self._host_wire(host["volume"])
+        """Decode rows `sel` (this rank's block of them under a mesh); on the
+        card, copy them over on the copy stream and record the copy's event
+        (the consumer waits on it)."""
+        host = self.dataset.meta(sel)
+        vols = global_batch_from_rows(
+            self.mesh, len(sel),
+            lambda lo, hi: self.dataset.gather(sel[lo:hi])["volume"])
+        vols = self._host_wire(vols)
         covs = torch.from_numpy(host["covariates"])
         event = None
         if self.device.type == "cuda":
             pin_vols, pin_covs = self._pinned.claim()
-            n = len(sel)
+            n, m = len(vols), len(sel)
             pin_vols[:n].copy_(vols)
-            pin_covs[:n].copy_(covs)
+            pin_covs[:m].copy_(covs)
             with torch.cuda.device(self.device), torch.cuda.stream(self._copy_stream):
                 vols = pin_vols[:n].to(self.device, non_blocking=True)
-                covs = pin_covs[:n].to(self.device, non_blocking=True)
+                covs = pin_covs[:m].to(self.device, non_blocking=True)
                 vols = vols.float()
                 event = torch.cuda.Event()
                 event.record(self._copy_stream)
@@ -168,7 +181,7 @@ class PrefetchLoader:
         return batch
 
     def __iter__(self) -> Iterator[Dict[str, object]]:
-        order = np.arange(len(self.dataset))
+        order = self._rows.copy()
         if self.shuffle:
             self._epoch_rng().shuffle(order)
         batches = [order[start:start + self.batch_size]
@@ -176,8 +189,9 @@ class PrefetchLoader:
         if self.drop_last and batches and len(batches[-1]) < self.batch_size:
             batches.pop()
         if self.device.type == "cuda" and self._pinned is None:
-            shape = (self.batch_size,) + self.dataset[0]["volume"].shape
-            self._pinned = _PinnedSets(self.depth + 1, shape,
+            rows = -(-self.batch_size // (1 if self.mesh is None else self.mesh.world))
+            shape = (rows,) + self.dataset[0]["volume"].shape
+            self._pinned = _PinnedSets(self.depth + 1, self.batch_size, shape,
                                        self.dataset[0]["covariates"].shape[0],
                                        self._wire or torch.float32)
             self._copy_stream = torch.cuda.Stream(self.device)

@@ -24,11 +24,14 @@ JAX code casts to float32.
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..ops.conv5 import conv5
+from ..parallel.mesh import all_reduce_sum
 from ..utils import prng
 
 _BN_EPS = 1e-5
@@ -150,7 +153,8 @@ def init_decoder(key, nf, z_dim, img_shape, dtype=np.float32):
 # layer applies
 # ---------------------------------------------------------------------------
 
-def batch_stat_norm(x, p, groups: int = 1, stat_dtype=None):
+def batch_stat_norm(x, p, groups: int = 1, stat_dtype=None, mesh=None,
+                    global_rows=None):
     """Normalize with the CURRENT batch statistics over (N, D, H, W).
 
     BatchNorm3d(track_running_stats=False) semantics: biased variance,
@@ -159,13 +163,24 @@ def batch_stat_norm(x, p, groups: int = 1, stat_dtype=None):
     Statistics are taken in ``stat_dtype``, by default in at least fp32;
     a float64 model passes float32, as the JAX code casts to it; the
     normalized values then meet the float64 scale and shift.
+
+    Under a data-parallel ``mesh`` x holds this rank's rows of a batch of
+    ``global_rows`` rows (each group's rows its share of that group's), and
+    the statistics are the global batch's: the sum, then the centred sum of
+    squares (the same two passes), each summed over the ranks.
     """
     n, c = x.shape[:2]
     xg = x.reshape(groups, n // groups, *x.shape[1:])
     xg = xg.to(stat_dtype or torch.promote_types(x.dtype, torch.float32))
     axes = (1, 3, 4, 5)
-    mean = xg.mean(dim=axes, keepdim=True)
-    var = (xg - mean).square().mean(dim=axes, keepdim=True)
+    if mesh is None:
+        mean = xg.mean(dim=axes, keepdim=True)
+        var = (xg - mean).square().mean(dim=axes, keepdim=True)
+    else:
+        count = (global_rows // groups) * math.prod(x.shape[2:])
+        mean = all_reduce_sum(xg.sum(dim=axes, keepdim=True), mesh) / count
+        var = all_reduce_sum((xg - mean).square().sum(dim=axes, keepdim=True),
+                             mesh) / count
     xn = (xg - mean) * torch.rsqrt(var + _BN_EPS)
     shape = (1, 1, c, 1, 1, 1)
     out = xn * p["scale"].reshape(shape) + p["shift"].reshape(shape)
@@ -197,12 +212,14 @@ def _conv_t(x, p, stride=1, padding=0, output_padding=0, conv_dtype=None):
 
 
 def encode(params, x, conv5_kernel: bool = True, conv_dtype=None,
-           stat_dtype=None):
+           stat_dtype=None, mesh=None, global_rows=None):
     """x: (B, D, H, W) -> (mu, u, d), each (B, num_latents).
 
     conv_dtype (e.g. torch.bfloat16) selects the conv stack's precision;
     norm statistics, the FC stack and the heads stay fp32.  stat_dtype is
-    the norm statistics' dtype (see :func:`batch_stat_norm`).  conv5_kernel
+    the norm statistics' dtype (see :func:`batch_stat_norm`, which also
+    says what ``mesh`` and ``global_rows`` do: x is then this rank's rows
+    of a global batch of that many).  conv5_kernel
     routes the fp32 conv5 through ``ops.conv5`` (the hand-written CUDA
     kernel on CUDA tensors, its plain version on CPU tensors) instead of
     ``F.conv3d``; a half-precision conv5 takes the stock conv, as the JAX
@@ -212,12 +229,14 @@ def encode(params, x, conv5_kernel: bool = True, conv_dtype=None,
     h = x[:, None]  # NCDHW with C=1
     if cd is not None:
         h = h.to(cd)  # one downcast; activations stay cd across the stack
-    sd = stat_dtype
-    h = F.relu(_conv(batch_stat_norm(h, params["bn1"], 1, sd), params["conv1"], 1, cd))
+    def norm(h, p):
+        return batch_stat_norm(h, p, 1, stat_dtype, mesh, global_rows)
+
+    h = F.relu(_conv(norm(h, params["bn1"]), params["conv1"], 1, cd))
     h = F.relu(_conv(h, params["conv2"], 2, cd))
-    h = F.relu(_conv(batch_stat_norm(h, params["bn3"], 1, sd), params["conv3"], 1, cd))
+    h = F.relu(_conv(norm(h, params["bn3"]), params["conv3"], 1, cd))
     h = F.relu(_conv(h, params["conv4"], 2, cd))
-    h5 = batch_stat_norm(h, params["bn5"], 1, sd)
+    h5 = norm(h, params["bn5"])
     if conv5_kernel and cd is None:
         h = F.relu(conv5(h5, params["conv5"]["w"], params["conv5"]["b"]))
     else:
@@ -232,7 +251,8 @@ def encode(params, x, conv5_kernel: bool = True, conv_dtype=None,
 
 
 def decode(params, z, img_shape=REFERENCE_IMG_SHAPE, stat_groups: int = 1,
-           conv_dtype=None, fp32_final: bool = False, stat_dtype=None):
+           conv_dtype=None, fp32_final: bool = False, stat_dtype=None,
+           mesh=None, global_rows=None):
     """z: (B*, z_dim) -> sigmoid volume flattened to (B*, prod(img_shape)).
 
     stat_groups: contiguous batch groups for the batch-stat norms.
@@ -240,9 +260,15 @@ def decode(params, z, img_shape=REFERENCE_IMG_SHAPE, stat_groups: int = 1,
     fp32_final: run convt5, the conv feeding the sigmoid, in fp32 even when
     conv_dtype is half precision.  stat_dtype: the norm statistics' dtype,
     and the sigmoid's (its output's) when given; by default the sigmoid
-    runs in z's dtype.
+    runs in z's dtype.  Under a data-parallel ``mesh`` z holds this rank's
+    rows of each group and ``global_rows`` counts the global decode's rows
+    (see :func:`batch_stat_norm`).
     """
-    cd, sg, sd = conv_dtype, stat_groups, stat_dtype
+    cd, sd = conv_dtype, stat_dtype
+
+    def norm(h, p):
+        return batch_stat_norm(h, p, stat_groups, sd, mesh, global_rows)
+
     seed, crop = decoder_seed_shape(img_shape)
     c = params["convt1"]["w"].shape[0]
     h = F.relu(_linear(z, params["fc5"]))
@@ -252,13 +278,11 @@ def decode(params, z, img_shape=REFERENCE_IMG_SHAPE, stat_groups: int = 1,
     h = h.reshape(-1, c, *seed)
     if cd is not None:
         h = h.to(cd)  # one downcast; activations stay cd across the stack
-    h = F.relu(_conv_t(batch_stat_norm(h, params["bnt1"], sg, sd), params["convt1"],
-                       conv_dtype=cd))
+    h = F.relu(_conv_t(norm(h, params["bnt1"]), params["convt1"], conv_dtype=cd))
     h = F.relu(_conv_t(h, params["convt2"], 2, (1, 0, 1), (1, 0, 1), conv_dtype=cd))
-    h = F.relu(_conv_t(batch_stat_norm(h, params["bnt3"], sg, sd), params["convt3"],
-                       conv_dtype=cd))
+    h = F.relu(_conv_t(norm(h, params["bnt3"]), params["convt3"], conv_dtype=cd))
     h = F.relu(_conv_t(h, params["convt4"], 2, conv_dtype=cd))
-    h = batch_stat_norm(h, params["bnt5"], sg, sd)
+    h = norm(h, params["bnt5"])
     if fp32_final and cd is not None:
         h = _conv_t(h.to(z.dtype), params["convt5"])
     else:

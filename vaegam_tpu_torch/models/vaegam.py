@@ -36,6 +36,7 @@ from .distributions import (
     normal_kl,
     normal_log_prob,
 )
+from ..parallel.mesh import all_reduce_max, all_reduce_total, batch_rows, global_value
 from .networks import decode, encode, init_decoder, init_encoder
 
 # output map keys, in reference order
@@ -251,6 +252,16 @@ def hrf_convolve(gains: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
     return F.conv1d(padded, kernel.flip(0)[None, None, :])[:, 0, :]
 
 
+def d_floor(d: torch.Tensor, mesh=None) -> torch.Tensor:
+    """The reference's global d-floor: if ANY element of the batch's d is
+    below 1e-6, shift the WHOLE tensor by 1e-6 (under a mesh, any element
+    of any rank's rows)."""
+    tiny = (d < 1e-6).any()
+    if mesh is not None:
+        tiny = all_reduce_max(tiny.to(torch.int32), mesh) > 0
+    return torch.where(tiny, d + 1e-6, d)
+
+
 def draw_noise(generator: torch.Generator, batch: int, config: VAEGAMConfig,
                device) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(eps_w (B,1), eps_d (B,L), eps_beta (C,B)) standard normals in the
@@ -267,12 +278,13 @@ def forward(
     params: Dict[str, Any],
     consts: Dict[str, Any],
     covariates: torch.Tensor,  # (B, num_covariates)
-    x: torch.Tensor,           # (B, *img_shape)
+    x: torch.Tensor,           # (B, *img_shape); this rank's rows under a mesh
     config: VAEGAMConfig,
     noise=None,
     generator: Optional[torch.Generator] = None,
     return_maps: bool = False,
     deterministic: bool = False,
+    mesh=None,
 ):
     """Composite VAE-GAM objective (reference vae_reg_GP.py:307-413).
 
@@ -283,24 +295,40 @@ def forward(
     The draws come from ``noise=(eps_w, eps_d, eps_beta)`` when given, else
     from ``generator``.  deterministic=True uses the means (z = mu,
     gains = beta_mean) and draws nothing.
+
+    Data parallel: with a ``mesh`` (``parallel.DataMesh``) the covariates
+    and the noise are the GLOBAL batch's (every rank draws the same) and x
+    holds this rank's block of its volumes (``parallel.batch_rows``, uneven
+    blocks allowed).  The value returned is the global batch's, as the
+    single-process forward on the whole batch gives it: the norm statistics
+    and the d-floor are reduced over the ranks, the gain sample (the B x B
+    covariances, the jittered Cholesky, the HRF along the batch axis) is
+    computed over the whole batch on every rank, which then keeps its own
+    columns, and the loss sums the ranks' shares.  Its gradient is this
+    rank's share (the replicated KL terms weighted 1/R), so the gradients
+    summed over the ranks are the single-process ones.  ``aux``'s scalars
+    and gain statistics are global; 'z' and the maps are this rank's rows.
     """
+    b_all = covariates.shape[0]
+    lo, hi = batch_rows(b_all, mesh, uneven=True)
     b = x.shape[0]
+    if b != hi - lo:
+        raise ValueError(f"{b} volume rows for rows [{lo}, {hi}) of a batch of {b_all}")
     n_cov = config.num_covariates
     if not deterministic and noise is None:
         if generator is None:
             raise ValueError("forward needs noise tensors or a generator")
-        noise = draw_noise(generator, b, config, x.device)
+        noise = draw_noise(generator, b_all, config, x.device)
 
     # --- encoder & latent sample ------------------------------------------
     mu, u, d = encode(params["enc"], x, config.conv5_kernel, config.enc_cd,
-                      config.stat_dtype)
-    # global d-floor: if ANY element is tiny, shift the WHOLE tensor
-    d = torch.where((d < 1e-6).any(), d + 1e-6, d)
+                      config.stat_dtype, mesh, b_all)
+    d = d_floor(d, mesh)
     if deterministic:
         z = mu
     else:
         eps_w, eps_d, eps_beta = noise
-        z = mu + u * eps_w + torch.sqrt(d) * eps_d
+        z = mu + u * eps_w[lo:hi] + torch.sqrt(d) * eps_d[lo:hi]
 
     # --- ONE batched decode for base + all covariate effect maps ----------
     onehots = torch.eye(n_cov + 1, dtype=z.dtype, device=z.device)
@@ -311,19 +339,19 @@ def forward(
         params["dec"], zcat, config.img_shape,
         stat_groups=1 if config.fused_norm_stats else n_cov + 1,
         conv_dtype=config.dec_cd, fp32_final=config.dec_fp32_final,
-        stat_dtype=config.stat_dtype,
+        stat_dtype=config.stat_dtype, mesh=mesh, global_rows=(n_cov + 1) * b_all,
     ).reshape(n_cov + 1, b, config.img_dim)
     # a float64 model decodes float32 maps (JAX's sigmoid cast): the sums
     # below promote them to float64, as jnp's do
     base, diffs = decoded[0], decoded[1:]                         # (B,D), (C,B,D)
 
-    # --- gain (beta) distributions per covariate ---------------------------
+    # --- gain (beta) distributions per covariate, over the global batch ----
     gp_p = params["gp"]
     xq = covariates.T                                             # (C, B)
     sa, std = gp_p["sa"], torch.exp(gp_p["logstd"])
     lin_kl = torch.sum(normal_kl(sa, std, 1.0, 0.5))
     beta_mean = sa[:, None] * xq                                  # (C, B)
-    eye_b = torch.eye(b, dtype=xq.dtype, device=xq.device)
+    eye_b = torch.eye(b_all, dtype=xq.dtype, device=xq.device)
     beta_cov = eye_b[None] * (std[:, None] ** 2 * xq ** 2)[:, None, :]  # (C,B,B)
 
     # sparse GP for the 6 motion covariates, one batched evaluation
@@ -332,10 +360,11 @@ def forward(
     f_bar, sigma = gp_mod.evaluate_posterior(
         consts["xu"], kvar, ls, gp_p["qu_m"], qu_S, xq[MOTION_SLICE]
     )
-    lo, hi = MOTION_SLICE.start, MOTION_SLICE.stop
-    beta_mean = torch.cat([beta_mean[:lo], beta_mean[lo:hi] + f_bar,
-                           beta_mean[hi:]])
-    beta_cov = torch.cat([beta_cov[:lo], beta_cov[lo:hi] + sigma, beta_cov[hi:]])
+    m_lo, m_hi = MOTION_SLICE.start, MOTION_SLICE.stop
+    beta_mean = torch.cat([beta_mean[:m_lo], beta_mean[m_lo:m_hi] + f_bar,
+                           beta_mean[m_hi:]])
+    beta_cov = torch.cat([beta_cov[:m_lo], beta_cov[m_lo:m_hi] + sigma,
+                          beta_cov[m_hi:]])
     gp_kls = gp_mod.gp_kl(gp_p["qu_m"], qu_S)                     # (6,)
     gp_kl_loss = lin_kl + torch.sum(gp_kls)
 
@@ -352,6 +381,8 @@ def forward(
     if config.neural_covariates and config.num_neural > 0:
         nn_ = config.num_neural
         gains = torch.cat([hrf_convolve(gains[:nn_], consts["hrf"]), gains[nn_:]])
+    gains_absmax = torch.max(torch.abs(gains))
+    gains = gains[:, lo:hi]                                       # this rank's columns
 
     # --- compose reconstruction -------------------------------------------
     x_rec = base + torch.einsum("cb,cbd->bd", gains, diffs.to(gains.dtype))
@@ -363,7 +394,7 @@ def forward(
         dg = torch.einsum("cbd,cd->cb", diffs.to(glm.dtype), glm)  # (C, B)
         g2 = torch.sum(glm * glm, dim=-1)                         # (C,)
         sq = gains ** 2 * d2 - 2.0 * gains * dg + g2[:, None]
-        glm_reg = b * torch.sum(torch.sqrt(torch.clamp(sq, min=0.0)))
+        glm_reg = b_all * torch.sum(torch.sqrt(torch.clamp(sq, min=0.0)))
     else:
         glm_reg = torch.zeros((), dtype=x.dtype, device=x.device)
 
@@ -375,10 +406,22 @@ def forward(
     log_prob = torch.sum(
         normal_log_prob(x.reshape(b, -1), x_rec, obs_scale[None, :]), dim=-1
     )
-    elbo = torch.mean(-kl_z + log_prob)
-    tot_loss = (
-        -elbo + config.gp_kl_scale * gp_kl_loss + config.glm_reg_scale * glm_reg
-    )
+    if mesh is None:
+        elbo = torch.mean(-kl_z + log_prob)
+        tot_loss = (
+            -elbo + config.gp_kl_scale * gp_kl_loss + config.glm_reg_scale * glm_reg
+        )
+        kl_z_mean, log_prob_mean = torch.mean(kl_z), torch.mean(log_prob)
+    else:
+        elbo_share = torch.sum(-kl_z + log_prob) / b_all
+        share = (-elbo_share + config.gp_kl_scale * gp_kl_loss / mesh.world
+                 + config.glm_reg_scale * glm_reg)
+        sums = all_reduce_total(torch.stack([
+            elbo_share, glm_reg.to(elbo_share.dtype), kl_z.sum(), log_prob.sum()]), mesh)
+        elbo, glm_reg = sums[0], sums[1]
+        kl_z_mean, log_prob_mean = sums[2] / b_all, sums[3] / b_all
+        tot_loss = global_value(share, -elbo + config.gp_kl_scale * gp_kl_loss
+                                + config.glm_reg_scale * glm_reg)
 
     aux: Dict[str, Any] = {
         "elbo": elbo,
@@ -386,9 +429,9 @@ def forward(
         "glm_reg": glm_reg,
         "beta_mean": beta_mean,
         "beta_cov_diag": torch.diagonal(beta_cov, dim1=-2, dim2=-1),
-        "kl_z_mean": torch.mean(kl_z),
-        "log_prob_mean": torch.mean(log_prob),
-        "gains_absmax": torch.max(torch.abs(gains)),
+        "kl_z_mean": kl_z_mean,
+        "log_prob_mean": log_prob_mean,
+        "gains_absmax": gains_absmax,
         "mvn_fallbacks": mvn_fallbacks,
     }
     if return_maps:

@@ -5,6 +5,8 @@ vae_reg_GP.py:622-689): for each motion covariate, evaluate the gain
 posterior over ALL csv rows, write a CSV {epoch:03d}_GP_{cov}_full.csv
 sorted by xq and a PDF GP_{cov}_full_set.pdf into {epoch:03d}_GP_plots/.
 The six posteriors are one batched evaluation on the Trainer's device.
+Under a data-parallel mesh rank 0 alone evaluates and writes them (the GP
+bank is the same on every rank), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -18,12 +20,15 @@ import torch
 
 from ..models.gp import evaluate_posterior_diag
 from ..models.vaegam import COVARIATE_KEYS, MOTION_SLICE, gp_transforms, resolve_qu_S
+from ..parallel.mesh import is_main_process
 from ..utils.tb import pyplot
 
 MOTION_CSV_COLS = ["x", "y", "z", "rot_x", "rot_y", "rot_z"]
 
 
 def plot_GPs(trainer, csv_file: str = "", save_dir: str = ""):
+    if not is_main_process(trainer.mesh):
+        return
     t0 = time.perf_counter()
     outdir_name = str(trainer.epoch).zfill(3) + "_GP_plots"
     plot_dir = os.path.join(save_dir, outdir_name)

@@ -13,6 +13,10 @@ Projection backend chain, as in the JAX package:
   4. PCA for inputs of 25 rows or fewer.
 The backend that produced the projection is returned and recorded, so a
 stand-in never passes for the native UMAP unnoticed.
+
+Data parallel: every rank runs the (collective) encode and receives the
+whole latent set; the projection and the plot are rank 0's, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ import numpy as np
 import torch
 
 from ..models.networks import encode
+from ..parallel.mesh import all_gather_rows, is_main_process
 from ..utils.tb import pyplot
 
 
@@ -66,12 +71,14 @@ def _project_2d(latent: np.ndarray, device="cpu", timings=None):
 
 
 def project_latent(trainer, loaders_dict, save_dir, title=None, split=98):
-    """Encode, project and plot; returns (latent, projection, backend).
+    """Encode, project and plot; returns (latent, projection, backend)
+    (projection and backend None on a rank other than 0).
 
     The encode is fp32 whatever the recipe (the JAX package's ``encode(p,
     x, nf)``), with conv5 through the kernel when ``config.conv5_kernel``.
     Seconds and the backend land in ``trainer.output_stats``.
     """
+    mesh = trainer.mesh
     stats = trainer.output_stats
     filename = str(trainer.epoch).zfill(3) + "_temp.pdf"
     file_path = os.path.join(save_dir, filename)
@@ -80,11 +87,17 @@ def project_latent(trainer, loaders_dict, save_dir, title=None, split=98):
     chunks = []
     with torch.no_grad():
         for sample in loaders_dict["UnShuffled_train"]:
-            _, x = trainer._put_batch(sample)
-            mu = encode(trainer.params["enc"], x, trainer.config.conv5_kernel)[0]
+            covs, x = trainer._put_batch(sample)
+            mu = encode(trainer.params["enc"], x, trainer.config.conv5_kernel,
+                        mesh=mesh, global_rows=len(covs))[0]
+            if mesh is not None:
+                mu = all_gather_rows(mu, mesh, len(covs))
             chunks.append(mu.cpu().numpy())
     latent = np.concatenate(chunks, axis=0)
     t1 = time.perf_counter()
+    if not is_main_process(mesh):
+        stats.update(latent_encode_s=t1 - t0)
+        return latent, None, None
     umap_timings = {}
     projection, backend = _project_2d(latent, trainer.device, umap_timings)
     t2 = time.perf_counter()

@@ -15,6 +15,10 @@ The maps forward runs on the Trainer's device; the NIfTI writes are host
 I/O.  The native batch writer (native/vaegam_io.cc
 vaegam_nifti_write_batch_f32) encodes and writes on a C++ thread pool with
 the GIL released; without it, a Python writer pool writes the same bytes.
+
+Data parallel: every rank runs the (collective) maps forwards and receives
+the global batch's maps; rank 0 alone creates the directories and writes
+and averages the files, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ import pandas as pd
 import torch
 
 from ..models.vaegam import MAP_KEYS
+from ..parallel.mesh import is_main_process
 from ..utils import nifti, nifti_native
 
 _WRITER_THREADS = nifti_native.DEFAULT_WRITER_THREADS
@@ -168,8 +173,13 @@ def reconstruct(trainer, loader, ref_niis: List[str], save_dirs: List[str]):
     writes; two map blocks live on the device at once (batch k's, until its
     copy, and batch k+1's), which is what ``data.wide_eval_view`` budgets.
     A float16 wire (``recon_wire_dtype``) is widened to float32 on the host
-    before encoding; the files are float32 either way.
+    before encoding; the files are float32 either way.  A rank other than 0
+    runs the maps forwards only.
     """
+    if not is_main_process(trainer.mesh):
+        for sample in loader:
+            trainer.recon_maps_step(*trainer._put_batch(sample))
+        return
     img_shape = tuple(trainer.config.img_shape)
     cuda = trainer.device.type == "cuda"
     writer = _Writer(ref_niis, save_dirs, img_shape)
@@ -259,7 +269,8 @@ def mk_single_volumes(loader, trainer, csv_file: str, save_dir: str):
         subj_dir = os.path.join(
             save_dir, "reconstructions", f"{ckpt_num}_model_recons", subj
         )
-        os.makedirs(subj_dir, exist_ok=True)
+        if is_main_process(trainer.mesh):
+            os.makedirs(subj_dir, exist_ok=True)
         subj_dirs.append(subj_dir)
     reconstruct(trainer, loader, ref_niis, subj_dirs)
 
@@ -271,8 +282,10 @@ def mk_avg_maps(csv_file: str, trainer, save_dir: str,
     Re-reads the recon_{key}.nii files exactly like the reference
     (build_model_recons.py:86-92), so the output is a pure function of what
     is on disk: float64 sums in directory-listing order, decoded 64 files
-    at a time.
+    at a time.  Rank 0's alone under a mesh.
     """
+    if not is_main_process(trainer.mesh):
+        return
     t0 = time.perf_counter()
     img_shape = tuple(trainer.config.img_shape)
     ckpt_num = str(trainer.epoch).zfill(3)

@@ -30,6 +30,20 @@ and replayed for every non-figure step at that width (see
 :class:`_StepGraph`); figure steps run eagerly.  The schedule, the noise
 and the arithmetic are the eager path's, so on the CPU, where the "replay"
 is the eager step itself, both settings give the same bits.
+
+Data parallel (``mesh``, a ``parallel.DataMesh``), as the JAX Trainer's
+``mesh``: every rank holds the same parameters, moments, counters and
+generator state (rank 0's are broadcast at the start and after a load),
+walks the same global batch order and draws the same global noise; its
+step runs :func:`forward` on its own rows with the batch-coupled terms
+reduced over the ranks, and the gradients are summed over the ranks (one
+flat buffer per dtype) before the skip rule, the clip and Adam read them,
+so every rank makes the same update, and the epoch loss is the global one
+on every rank.  Maps forwards (figures, the output stage) gather the
+global batch's maps on every rank.  TensorBoard, the qu_S diagnostics and
+checkpoints are written by rank 0 alone.  Under ``epoch_scan`` the step's
+collectives are captured into the CUDA graph, which NCCL allows and gloo
+does not: ``epoch_scan`` with a gloo mesh is refused.
 """
 
 from __future__ import annotations
@@ -47,6 +61,8 @@ import torch
 from .._device import configure_cuda_backends, resolve_device
 from ..models.vaegam import (COVARIATE_KEYS, VAEGAMConfig, draw_noise, forward,
                              init_model, resolve_qu_S)
+from ..parallel.mesh import (all_gather_rows, all_reduce_grads, barrier, batch_rows,
+                             is_main_process, put_replicated)
 from ..utils import prng, tb
 from ..utils.jax_params import params_from_jax, params_to_jax
 from ..utils.tree import tree_items, tree_map
@@ -99,7 +115,17 @@ class Trainer:
         device=None,
         params=None,
         consts=None,
+        mesh=None,
     ):
+        if mesh is not None:
+            if device is not None and torch.device(device) != mesh.device:
+                raise ValueError(f"device {device} is not the mesh's {mesh.device}")
+            device = mesh.device
+            if epoch_scan and mesh.backend != "nccl":
+                raise ValueError(
+                    f"epoch_scan captures the step's collectives into a CUDA graph, "
+                    f"which {mesh.backend} cannot: it needs NCCL, one card a rank")
+        self.mesh = mesh
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             configure_cuda_backends()
@@ -130,6 +156,7 @@ class Trainer:
         self.consts = consts
         self._set_params(params)
         self._reset_opt_state()
+        self._replicate()
         self.epoch = 0
         self.loss: Dict[str, Dict[int, float]] = {"train": {}, "test": {}}
         self.mvn_fallbacks = 0
@@ -144,7 +171,7 @@ class Trainer:
         self._figs_enabled = bool(enable_tb and save_dir and log_figs_every)
         self._figures_missing: set = set()
         self.writer = None
-        if enable_tb and save_dir:
+        if enable_tb and save_dir and is_main_process(mesh):
             log_dir = os.path.join(save_dir, "run",
                                    datetime.datetime.now().date().strftime("%m_%d_%Y"))
             try:
@@ -192,6 +219,10 @@ class Trainer:
         }
         self._mu = [t for _, t in tree_items(self.opt_state["mu"])]
         self._nu = [t for _, t in tree_items(self.opt_state["nu"])]
+
+    def _replicate(self) -> None:
+        """Rank 0's parameters and Adam moments on every rank."""
+        put_replicated(self._leaves + self._mu + self._nu, self.mesh)
 
     def set_conv_dtype(self, conv_dtype) -> None:
         """Switch the conv precision mid-training (e.g. an fp32 warm start
@@ -248,8 +279,11 @@ class Trainer:
         from the Trainer's generator.  Returns (loss, aux) as device tensors.
         """
         loss, aux = forward(self.params, self.consts, covariates, x,
-                            self.config, noise=noise, generator=self.generator)
+                            self.config, noise=noise, generator=self.generator,
+                            mesh=self.mesh)
         grads = torch.autograd.grad(loss, self._leaves)
+        if self.mesh is not None:
+            grads = all_reduce_grads(grads, self.mesh)
         self._apply_gradients(grads)
         aux = {k: v.detach() for k, v in aux.items() if torch.is_tensor(v)}
         return loss.detach(), aux
@@ -259,7 +293,19 @@ class Trainer:
         model's dtype, as the JAX Trainer's ``_put_batch``: numpy batches
         are cast on the host and copied from pinned memory without blocking
         it; tensors in the model's dtype pass through untouched and narrower
-        ones are cast on the device (a wider one is never narrowed)."""
+        ones are cast on the device (a wider one is never narrowed).
+
+        Under a mesh the covariates stay the global batch's; a volume batch
+        of the global batch's rows (a host loader's) is cut to this rank's
+        rows before its copy, refused when the ranks do not divide it, as
+        JAX's placement refuses it; a loader that already cut it (the
+        device cache, the prefetch loader) passes it as it is."""
+        vols = sample["volume"]
+        if self.mesh is not None and self.mesh.world > 1 and \
+                len(vols) == len(sample["covariates"]):
+            lo, hi = batch_rows(len(vols), self.mesh)
+            vols = vols[lo:hi]
+
         def put(a):
             if torch.is_tensor(a):
                 return a.to(self.device, torch.promote_types(a.dtype, self.config.dtype))
@@ -268,7 +314,7 @@ class Trainer:
                 return t.pin_memory().to(self.device, non_blocking=True)
             return t.to(self.device)
 
-        return put(sample["covariates"]), put(sample["volume"])
+        return put(sample["covariates"]), put(vols)
 
     # --------------------------------------------------------------- epochs
     def train_epoch(self, loader) -> float:
@@ -281,6 +327,9 @@ class Trainer:
         if hasattr(loader, "set_epoch"):
             loader.set_epoch(self.epoch)
         if hasattr(loader, "iter_index_batches"):
+            if loader.mesh != self.mesh:
+                raise ValueError("a device cache gathers the rows of its own mesh: "
+                                 "build it with the Trainer's")
             if self.config.dtype != torch.float32:
                 raise ValueError(
                     f"a {self.config.dtype} model trains from host batches "
@@ -392,7 +441,9 @@ class Trainer:
             out = g.warm_up(self.train_step)
             if self._graph_pool is None:
                 self._graph_pool = torch.cuda.graph_pool_handle()
-            g.capture(self.train_step, self._graph_pool)
+            # NCCL's watchdog thread queries events while a capture runs
+            g.capture(self.train_step, self._graph_pool,
+                      "global" if self.mesh is None else "thread_local")
             self._graphs[width] = g
             self.captures[width] = self.captures.get(width, 0) + 1
             return out
@@ -417,7 +468,7 @@ class Trainer:
         for sample in loader:
             covs, x = self._put_batch(sample)
             loss, _ = forward(self.params, self.consts, covs, x, self.config,
-                              generator=self.generator)
+                              generator=self.generator, mesh=self.mesh)
             losses.append(loss)
         test_loss = float(torch.stack(losses).sum()) if losses else 0.0
         test_loss /= loader.num_samples
@@ -459,11 +510,18 @@ class Trainer:
     @torch.no_grad()
     def maps_step(self, covs, x, wire=None):
         """Forward with maps and generator-drawn noise; with ``wire`` the
-        maps are cast to it on the device.  Returns (loss, aux)."""
+        maps are cast to it on the device.  Returns (loss, aux).  Under a
+        mesh every rank runs it and receives the global batch's maps and z
+        (on the wire when given)."""
         loss, aux = forward(self.params, self.consts, covs, x, self.config,
-                            generator=self.generator, return_maps=True)
+                            generator=self.generator, return_maps=True, mesh=self.mesh)
         if wire is not None:
             aux["maps"] = {k: v.to(wire) for k, v in aux["maps"].items()}
+        if self.mesh is not None:
+            n = len(covs)
+            aux["maps"] = {k: all_gather_rows(v, self.mesh, n)
+                           for k, v in aux["maps"].items()}
+            aux["z"] = all_gather_rows(aux["z"], self.mesh, n)
         return loss, aux
 
     def recon_maps_step(self, covs, x):
@@ -505,8 +563,8 @@ class Trainer:
 
     def check_gp_stability(self, covariates=None) -> bool:
         """Dump qu_S diagnostics if any GP posterior cov went non-PSD
-        (the reference's qu_S_diagnostics.tar, gp.py:47-63).  Returns True
-        if healthy."""
+        (the reference's qu_S_diagnostics.tar, gp.py:47-63; rank 0 writes
+        it).  Returns True if healthy."""
         gp_np = {k: v.detach().cpu().numpy() for k, v in self.params["gp"].items()}
         gp_np["qu_S"] = resolve_qu_S(self.params["gp"]).detach().cpu().numpy()
         if torch.is_tensor(covariates):
@@ -520,6 +578,8 @@ class Trainer:
             except np.linalg.LinAlgError:
                 healthy = False
                 print("Oops, something went wrong with qu_S!!")
+                if not is_main_process(self.mesh):
+                    continue
                 diag = {
                     "qu_m": gp_np["qu_m"][j],
                     "qu_S": gp_np["qu_S"][j],
@@ -550,6 +610,10 @@ class Trainer:
         return (st["notfinite_count"], st["last_finite"], st["total_notfinite"], inner)
 
     def save_state(self, filename: str):
+        """Write a checkpoint (rank 0; every rank waits until it exists)."""
+        if not is_main_process(self.mesh):
+            barrier(self.mesh)
+            return
         params, consts = params_to_jax(self.params, self.consts, self.config)
         save_checkpoint(
             filename,
@@ -567,6 +631,7 @@ class Trainer:
             torch_rng_state={"device": self.device.type,
                              "state": self.generator.get_state().numpy()},
         )
+        barrier(self.mesh)
 
     def _load_opt_state(self, opt_state, jax_params) -> None:
         """Optimizer leaves in optax's order -> the port's state; a structure
@@ -628,6 +693,7 @@ class Trainer:
         if consts is not None:
             self.consts = consts
         self._load_opt_state(state["optimizer_state"], state["params"])
+        self._replicate()
         self.loss = state["loss"]
         self.epoch = state["epoch"]
         rng = state.get("torch_rng_state")
@@ -687,8 +753,8 @@ class _StepGraph:
         main.wait_stream(side)
         return out
 
-    def capture(self, train_step, pool) -> None:
+    def capture(self, train_step, pool, error_mode="global") -> None:
         """Record the step; nothing runs until :meth:`graph.replay`."""
         self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph, pool=pool):
+        with torch.cuda.graph(self.graph, pool=pool, capture_error_mode=error_mode):
             self.loss, self.fallbacks = self._step(train_step)

@@ -6,7 +6,9 @@
                                             # written under DIR
 
 Phases, in this order but 4c, which runs after 7 (any failure exits
-non-zero; nothing is caught to exit 0):
+non-zero; nothing is caught to exit 0; phase 7's recovery verdict alone is
+read after phase 9, so that a run whose oracle did not recover still
+drives and reports every later phase before it exits non-zero):
   1. the card: name and power limit (nvidia-smi), TF32 off;
   2. build every CUDA kernel of the main path from this checkout's sources;
   2b. the tensor-core instructions (HMMA) in the built conv5 library;
@@ -126,7 +128,10 @@ non-zero; nothing is caught to exit 0):
      checkpoint, GP CSVs, 9,800 recon maps and 110 averaged maps written
      once, by rank 0, conv5 once a forward on each rank; the ranks report
      their conv5 launch shapes, which phase 3 must have checked;
- 10. one JSON line with the kernels' numbers (conv5's launches by path,
+ 10. one JSON line with the seconds of each phase and of the whole run
+     (after the imports) beside the card, then (phase 7's verdict read
+     here) one JSON line
+     with the kernels' numbers (conv5's launches by path,
      the epoch_scan paths' as launches plus replays, the ranks'), one with
      the step time, one with the float64 step, one with epoch_scan's
      (phases 4c and 7b), one with the CLI's numbers (converters included),
@@ -1435,8 +1440,11 @@ def drive_oracle(conv5_mod, work: Path):
     """Phase 7: the port's control experiment at every default, in this
     process and under `work`, with conv5's count set to 0 just before it.
     Its own output goes to a log; its JSON line and the tail of the log are
-    printed.  Returns (conv5 launches, the tool's result, the phase's
-    seconds)."""
+    printed.  A result that is not finite or a wrong launch count fails at
+    once; a run that did not recover is returned as the failure message,
+    which main() raises after phase 9 so that the later phases still run
+    and report.  Returns (conv5 launches, the tool's result, the phase's
+    seconds, the failure message or None)."""
     argv = ["--work_dir", str(work / "ctl"), "--epochs", str(ORACLE_EPOCHS)]
     torch.cuda.synchronize()
     conv5_mod.conv5.launches = 0
@@ -1463,12 +1471,15 @@ def drive_oracle(conv5_mod, work: Path):
                                    "contrast_ratio", "train_seconds")]
     if not np.isfinite(numbers).all() or result["epochs"] != ORACLE_EPOCHS:
         fail(f"the oracle's result is not finite or not {ORACLE_EPOCHS} epochs: {numbers}")
-    if rc != 0 or not result["recovered"]:
-        fail(f"the oracle did not recover the injected signal (exit {rc}, contrast "
-             f"{result['contrast_ratio']}, inside mean {result['task_map_mean_inside']})")
     if launches != want:
         fail("conv5 did not launch once per train and recon forward in the oracle")
-    return launches, result, phase_s
+    verdict = None
+    if rc != 0 or not result["recovered"]:
+        verdict = (f"the oracle did not recover the injected signal (exit {rc}, contrast "
+                   f"{result['contrast_ratio']}, inside mean "
+                   f"{result['task_map_mean_inside']})")
+        print(f"phase 7 FAILED: {verdict}; the later phases run first", flush=True)
+    return launches, result, phase_s, verdict
 
 
 ORACLE_SCAN_EPOCHS = 30
@@ -2060,10 +2071,21 @@ def main(argv=None) -> int:
     from vaegam_tpu_torch._device import configure_cuda_backends
     from vaegam_tpu_torch.ops import build, conv5 as conv5_mod
 
+    t_start = last = time.perf_counter()
+    phase_s = {}
+
+    def lap(name):
+        """Seconds since the previous lap, kept under `name`."""
+        nonlocal last
+        now = time.perf_counter()
+        phase_s[name] = now - last
+        last = now
+
     # 1. the card
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    print(f"card: {smi}")
     configure_cuda_backends()
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; "
           f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
@@ -2078,9 +2100,11 @@ def main(argv=None) -> int:
     if log.exists():
         print(log.read_text().strip())
     count_hmma(lib)
+    lap("1_2_card_build")
 
     # 3. kernels vs plain versions
     err, timing = check_conv5(conv5_mod)
+    lap("3_kernels")
 
     # 4-7. the train step; the train CLI on a NIfTI study, and its output
     # stage; the correctness oracle
@@ -2090,33 +2114,45 @@ def main(argv=None) -> int:
         with Conv5Shapes(conv5_mod) as shapes:
             step_launches, step_ms, all_ms, peak_gib = drive_main_path(conv5_mod,
                                                                        args.profile)
+            lap("4_step")
             f64_launches, f64 = drive_float64(conv5_mod)
+            lap("4b_float64")
             libs = host_libraries()
             cli_launches, cli, outputs, study = drive_cli(conv5_mod, libs, study_root)
-            oracle_launches, oracle, oracle_s = drive_oracle(conv5_mod, work)
+            lap("5_6b_cli")
+            oracle_launches, oracle, oracle_s, oracle_failed = drive_oracle(conv5_mod, work)
+            lap("7_oracle")
             # after phase 7, which so finds cuDNN's algorithm cache as it
             # did before phase 4c existed (4c is the first to search B = 2)
             scan_launches, scan = drive_epoch_scan(conv5_mod)
+            lap("4c_epoch_scan")
             oracle_scan_launches, scan["oracle"] = drive_oracle_scan(conv5_mod, work)
+            lap("7b_oracle_scan")
         shutil.rmtree(work, ignore_errors=True)
 
         # 8. beta_maps on the card
         betas = drive_beta_maps()
+        lap("8_beta_maps")
 
         # 9. data parallel: two ranks on the card, NCCL at a world of one,
         # the train CLI with --multihost on phase 5's study
         with Conv5Shapes(conv5_mod) as dp_shapes:
             dp_launches, rank_shapes, dp = drive_data_parallel(
                 conv5_mod, study, cli["fp32"]["train_losses"][:DP_CLI_EPOCHS])
+        lap("9_data_parallel")
     finally:
         shutil.rmtree(work, ignore_errors=True)
         shutil.rmtree(study_root, ignore_errors=True)
+    phase_s["total"] = time.perf_counter() - t_start
+    print(json.dumps({"phase_seconds": phase_s, "card": smi}))
     seen = shapes.seen | dp_shapes.seen | rank_shapes
     unchecked = seen - set(CONV5_SHAPES.values())
     print(f"conv5 launch shapes on the main path and the ranks: {sorted(seen)}; all "
           f"checked against the plain version in phase 3: {not unchecked}")
     if unchecked:
         fail(f"conv5 launched at shapes phase 3 did not check: {sorted(unchecked)}")
+    if oracle_failed:
+        fail(oracle_failed)
 
     # 10. numbers
     kernel = {

@@ -16,9 +16,9 @@ drives and reports every later phase before it exits non-zero):
      backward, at every shape the main path gives it (batch 32, the study's
      last batch of 20, --eval_batch_size 128 and its last batch of 84,
      phase 4's B=4 forward, the oracle's last batch of 2, phase 9's
-     per-rank 16 and 10) and a few others (both of conv5's staging paths);
-     phases 4-9 record the shape of every launch and fail on one this
-     phase did not check;
+     per-rank 16 and 10, phase 10's 98, MNI 8, 2 and 1, thin 8) and a few
+     others (both of conv5's staging paths); phases 4-10 record the shape
+     of every launch and fail on one this phase did not check;
      device time of conv5 and F.conv3d at the main and MNI shapes, with
      the CUDA-event time of 200 back-to-back calls and the host time to
      enqueue one call beside it;
@@ -128,16 +128,44 @@ drives and reports every later phase before it exits non-zero):
      checkpoint, GP CSVs, 9,800 recon maps and 110 averaged maps written
      once, by rank 0, conv5 once a forward on each rank; the ranks report
      their conv5 launch shapes, which phase 3 must have checked;
- 10. one JSON line with the seconds of each phase and of the whole run
+ 10. conv_pack (lane-packed stride-1 convs) and the study tools, at the
+     reference defaults unless said:
+     10a. packs (2,2) and (4,4): encode at batch 32 and the 288-row decode
+     against the unpacked stacks on the same parameters (in float64 the
+     outputs and gradients, in fp32 the outputs, at the JAX test's bounds
+     PACK_OUT_TOL / PACK_GRAD_TOL; the packed fp32 gradients against
+     float64 within FP32_GRAD_SHARE of each leaf and FP32_GRAD_VS_UNPACKED
+     times the unpacked arm's); one float64 step (conv5 off) packed
+     against unpacked (loss DP_F64_LOSS_RTOL, gradients DP_F64_GRAD_SHARE);
+     on phase 4c's volumes an unpacked epoch_scan run, then for each pack
+     an eager epoch, PACK_AB_STEPS steps timed in turns with unpacked ones
+     (conv5's launches counted by trainer) and PACK_SCAN_EPOCHS replayed
+     epochs (one capture a width, conv5 once a forward); the bf16 recipe packed (2,2) against unpacked (first-step
+     loss, maps, PACK_BF16_EPOCHS epochs each, no conv5);
+     10b. tools.bench_packed_conv --iters 10 at packs (2,2) and (4,4)
+     (per layer, 288 rows);
+     10c. tools.conv5_fullstep_study: the step with the conv5 kernel
+     against cuDNN's conv5, eager and replayed, 2 rounds of 20 steps;
+     10d. tools.bench_recon on 1 subject x 98 volumes at widths 32 and 128;
+     10e. tools.epsilon_precision_study (20 steps) and
+     tools.beta_solve_precision_study (10 subjects, 70,315 voxels);
+     10f. at the MNI grid, batch 8: tools.bench_mni_prefetch (2 subjects x
+     49 volumes, DataLoader against PrefetchLoader, a warm-up and 1 timed
+     epoch each), tools.epoch_scan_diagnosis (4 replayed epochs, a probe
+     every 3) and tools.mni_mesh_dryrun at 2 ranks sharing the card over
+     gloo (the full MNI model, one row a rank, its conv5 launch shape
+     checked in phase 3); conv5 must run once a forward on each path that
+     has it;
+ 11. one JSON line with the seconds of each phase and of the whole run
      (after the imports) beside the card, then (phase 7's verdict read
-     here) one JSON line
+     here) one JSON line with phase 10's numbers, one
      with the kernels' numbers (conv5's launches by path,
      the epoch_scan paths' as launches plus replays, the ranks'), one with
      the step time, one with the float64 step, one with epoch_scan's
      (phases 4c and 7b), one with the CLI's numbers (converters included),
      one with the output stage's numbers, one with the oracle's, one with
      beta_maps' and one with data parallel's;
- 11. as the last line: {"ok": true, "device": {...}}.
+ 12. as the last line: {"ok": true, "device": {...}}.
 Imports nothing of JAX or of the JAX package.
 """
 
@@ -269,6 +297,15 @@ CONV5_SHAPES = {  # (B, Ci, D, H, W, Co)
     # phase 9's two ranks: their half of batch 32 and of the study's last batch
     "dp": (BATCH // DP_RANKS, 16, 8, 10, 6, 16),
     "dp-tail": (N_STUDY % BATCH // DP_RANKS, 16, 8, 10, 6, 16),
+    # phase 10: bench_recon's width 128 over 98 volumes, the MNI tools'
+    # batch 8 and their last batch of 2 (98 volumes), the epsilon study's
+    # toy model at batch 8
+    "recon-98": (ORACLE_VOLS, 16, 8, 10, 6, 16),
+    "mni-b8": (8, 16, 20, 25, 20, 16),
+    "mni-tail": (98 % 8, 16, 20, 25, 20, 16),
+    "thin-b8": (8, 4, 3, 4, 3, 4),
+    # mni_mesh_dryrun's ranks: one row each
+    "mni-dp": (1, 16, 20, 25, 20, 16),
 }
 TIMED_CONV5_SHAPES = ("main", "mni")
 
@@ -540,16 +577,6 @@ def trainer_state(t):
     return digest.hexdigest(), moments, counters
 
 
-def graph_pool_mib():
-    """MiB of the caching allocator's segments that belong to a CUDA graph's
-    private pool (None when the snapshot does not say which pool)."""
-    segs = torch.cuda.memory_snapshot()
-    if not segs or "segment_pool_id" not in segs[0]:
-        return None
-    return sum(s["total_size"] for s in segs
-               if tuple(s["segment_pool_id"]) != (0, 0)) / 2**20
-
-
 def profile_epoch(trainer, loader):
     """One epoch under torch.profiler: (conv5 kernel events, NCCL kernel
     events, summed kernel ms, cudaStreamSynchronize calls and their host
@@ -589,6 +616,7 @@ def drive_epoch_scan(conv5_mod):
     path, the phase's numbers)."""
     from vaegam_tpu_torch.data import DeviceResidentLoader
     from vaegam_tpu_torch.models import VAEGAMConfig
+    from vaegam_tpu_torch.tools.common import graph_pool_mib
     from vaegam_tpu_torch.train import Trainer
 
     config = VAEGAMConfig()
@@ -2060,6 +2088,432 @@ def drive_data_parallel(conv5_mod, study, single_losses):
 
 
 
+# ---------------------------------------------------------------------------
+# phase 10: conv_pack on the card, and the study tools
+# ---------------------------------------------------------------------------
+
+PACKS = ((2, 2), (4, 4))
+PACK_AB_STEPS, PACK_SCAN_EPOCHS, PACK_BF16_EPOCHS = 20, 3, 2
+# the bounds of the JAX package's test_model_stacks_invariant_under_conv_pack
+# (tests/test_ops.py:157-205, 21x25x21 at B=4): outputs, then gradients,
+# (rtol, atol).  At full width the gradient leaves are sums over ~2e7 map
+# elements (|g| up to ~1e5), and the unpacked fp32 decoder's own gradients
+# sit ~500x those bounds from its float64 ones, so 10a.1 holds packed
+# against unpacked at them in float64 and in the fp32 outputs.  The fp32
+# gradients of each arm are held to the same float64 ones, as each leaf's
+# largest difference over its largest entry: the packed arm's at most
+# FP32_GRAD_SHARE on every leaf and its stack's worst at most
+# FP32_GRAD_VS_UNPACKED times the unpacked arm's worst (both arms read
+# about 2e-4 of the leaf on the H100 at B=32, PERF.md)
+PACK_OUT_TOL, PACK_GRAD_TOL = (1e-4, 1e-5), (1e-3, 2e-3)
+FP32_GRAD_SHARE, FP32_GRAD_VS_UNPACKED = 1e-3, 3.0
+# the packed bf16 recipe against the unpacked one: the first step's loss
+# (rtol) and the maps (relative L2, the port's bf16 map bound)
+PACK_BF16_LOSS_RTOL, PACK_BF16_MAP_RL2 = 1e-3, 1e-2
+TOOL_ITERS, MNI_BATCH = 10, 8        # bench_packed_conv's timed calls; the MNI tools' batch
+MNI_DP_RANKS = 2                     # mni_mesh_dryrun's ranks on the one card
+
+
+def excess(a, b, tol):
+    """max |a - b| / (atol + rtol |b|): at most 1 where assert_allclose passes."""
+    rtol, atol = tol
+    return float(((a - b).abs() / (atol + rtol * b.abs())).max())
+
+
+def reset_conv5(conv5_mod):
+    torch.cuda.synchronize()
+    conv5_mod.conv5.launches = conv5_mod.conv5.captured = 0
+
+
+def free_card():
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def pack_stacks(params, x, z, config, pack, dtype=torch.float32):
+    """The JAX test's stack losses at full width in `dtype` (float64 with
+    conv5 on cuDNN), {"enc", "dec"}: (the stack's output, its gradients
+    leaf by leaf)."""
+    from vaegam_tpu_torch.models.networks import decode, encode
+    from vaegam_tpu_torch.utils.tree import tree_items, tree_map
+
+    out = {}
+    for which in ("enc", "dec"):
+        prm = tree_map(lambda t: t.detach().to(dtype, copy=True).requires_grad_(True),
+                       params[which])
+        if which == "enc":
+            mu, u, d = encode(prm, x.to(dtype), config.conv5_kernel and dtype == torch.float32,
+                              conv_pack=pack)
+            loss, o = (torch.sin(mu) + torch.cos(u) + d).sum(), mu
+        else:
+            o = decode(prm, z.to(dtype), config.img_shape, config.num_covariates + 1,
+                       conv_pack=pack)
+            loss = torch.sin(o * 3.0).sum()
+        leaves = tree_items(prm)
+        grads = torch.autograd.grad(loss, [t for _, t in leaves])
+        out[which] = o.detach(), dict(zip([p for p, _ in leaves], grads))
+    return out
+
+
+def fp32_grad_shares(got, want):
+    """{leaf: its largest |fp32 - float64| over its largest float64 entry}."""
+    return {k: float((got[k].double() - b).abs().max() / b.abs().max().clamp_min(1e-30))
+            for k, b in want.items()}
+
+
+def drive_pack_stacks(conv5_mod, config):
+    """10a.1: encode at B=32 and the 288-row decode with each pack against
+    the unpacked stacks, the same parameters: in float64 outputs and
+    gradients, in fp32 the outputs, at the JAX test's bounds; the packed
+    fp32 gradients against float64 at FP32_GRAD_SHARE of each leaf and
+    within FP32_GRAD_VS_UNPACKED of the unpacked arm's.  Returns (conv5
+    launches, the numbers)."""
+    from vaegam_tpu_torch.models import init_model
+
+    params, _ = init_model(config, XU_RANGES, seed=SEED, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    x = torch.rand((BATCH,) + config.img_shape, generator=gen, device="cuda")
+    z = torch.randn(((config.num_covariates + 1) * BATCH, config.z_dim), generator=gen,
+                    device="cuda")
+    reset_conv5(conv5_mod)
+    ref = pack_stacks(params, x, z, config, None)
+    ref64 = pack_stacks(params, x, z, config, None, torch.float64)
+    plain = {w: fp32_grad_shares(ref[w][1], ref64[w][1]) for w in ("enc", "dec")}
+    out = {"unpacked_fp32_from_f64": {w: max(v.values()) for w, v in plain.items()}}
+    for pack in PACKS:
+        got = pack_stacks(params, x, z, config, pack)
+        got64 = pack_stacks(params, x, z, config, pack, torch.float64)
+        row, ratio = {}, {}
+        for w in ("enc", "dec"):
+            (o, g), (o0, _) = got[w], ref[w]
+            (o64, g64), (o064, g064) = got64[w], ref64[w]
+            shares = fp32_grad_shares(g, g064)
+            worst = max(shares, key=shares.get)
+            ratio[w] = shares[worst] / max(max(plain[w].values()), 1e-30)
+            row[w] = dict(out=excess(o, o0, PACK_OUT_TOL),
+                          out_f64=excess(o64, o064, PACK_OUT_TOL),
+                          grads_f64=max(excess(g64[k], g064[k], PACK_GRAD_TOL) for k in g064),
+                          grads_fp32_from_f64=shares[worst], worst_leaf=worst,
+                          unpacked_on_that_leaf=plain[w][worst],
+                          over_unpacked_worst=ratio[w])
+        out[f"{pack[0]}x{pack[1]}"] = row
+        print(f"conv_pack {pack} stacks against unpacked (B={BATCH}, decode {o.shape[0]} "
+              f"rows), worst |a-b|/(atol+rtol|b|) at {PACK_OUT_TOL} / {PACK_GRAD_TOL} "
+              f"(pass <= 1): fp32 outputs enc {row['enc']['out']:.3g} dec "
+              f"{row['dec']['out']:.3g}; float64 outputs {row['enc']['out_f64']:.3g} / "
+              f"{row['dec']['out_f64']:.3g}, gradients {row['enc']['grads_f64']:.3g} / "
+              f"{row['dec']['grads_f64']:.3g}; fp32 gradients from float64, the worst "
+              f"leaf's largest difference over its largest entry (bound {FP32_GRAD_SHARE}): "
+              f"packed enc {row['enc']['grads_fp32_from_f64']:.3g} "
+              f"({row['enc']['worst_leaf']}) dec {row['dec']['grads_fp32_from_f64']:.3g} "
+              f"({row['dec']['worst_leaf']}), unpacked {out['unpacked_fp32_from_f64']['enc']:.3g}"
+              f" / {out['unpacked_fp32_from_f64']['dec']:.3g}; packed over unpacked "
+              f"{ratio['enc']:.3g} / {ratio['dec']:.3g} (bound {FP32_GRAD_VS_UNPACKED})")
+        if max(r[k] for r in row.values() for k in ("out", "out_f64", "grads_f64")) > 1:
+            fail(f"the packed stacks ({pack}) disagree with the unpacked ones")
+        if max(r["grads_fp32_from_f64"] for r in row.values()) > FP32_GRAD_SHARE or \
+                max(ratio.values()) > FP32_GRAD_VS_UNPACKED:
+            fail(f"the packed fp32 gradients ({pack}) are further from float64 than the "
+                 "bound or than the unpacked arm's")
+    launches = conv5_mod.conv5.launches
+    if launches != 1 + len(PACKS):
+        fail(f"conv5 launched {launches} times for {1 + len(PACKS)} fp32 encoder forwards")
+    return launches, out
+
+
+def drive_pack_float64():
+    """10a.2: one float64 step (conv5 off), each pack against unpacked, the
+    same weights, batch and noise; returns the numbers."""
+    from vaegam_tpu_torch.models import VAEGAMConfig
+    from vaegam_tpu_torch.models.vaegam import draw_noise
+    from vaegam_tpu_torch.train import Trainer
+    from vaegam_tpu_torch.utils.tree import tree_items
+
+    config = VAEGAMConfig(dtype=torch.float64, conv5_kernel=False)
+    vols, covs, glm = synthetic_data(config, BATCH, SEED)
+    batch = {"covariates": covs, "volume": vols}
+    noise = draw_noise(torch.Generator().manual_seed(SEED), BATCH, config, "cpu")
+    runs = {}
+    for pack in (None,) + PACKS:
+        t = Trainer(dataclasses.replace(config, conv_pack=pack), XU_RANGES, glm, seed=SEED,
+                    enable_tb=False, device="cuda")
+        loss, _ = t.train_step(*t._put_batch(batch), noise=tuple(n.cuda() for n in noise))
+        runs[pack] = float(loss), [m.cpu().numpy() for _, m in tree_items(t.opt_state["mu"])]
+        del t
+    loss0, mu0 = runs[None]
+    out = {}
+    for pack in PACKS:
+        loss, mu = runs[pack]
+        rel = abs(loss - loss0) / abs(loss0)
+        share = max(grad_shares(mu, mu0))
+        out[f"{pack[0]}x{pack[1]}"] = dict(loss=loss, loss_rel=rel, grad_share=share)
+        print(f"conv_pack {pack} float64 step (B={BATCH}): loss {loss!r} against {loss0!r} "
+              f"(rel {rel:.3e}, bound {DP_F64_LOSS_RTOL}); gradients (the first Adam "
+              f"moment) {share:.3e} of each leaf's largest (bound {DP_F64_GRAD_SHARE})")
+        if not (np.isfinite(loss) and rel <= DP_F64_LOSS_RTOL and share <= DP_F64_GRAD_SHARE):
+            fail(f"the packed float64 step ({pack}) disagrees with the unpacked one")
+    out["loss_unpacked"] = loss0
+    return out
+
+
+def drive_pack_training(conv5_mod, config):
+    """10a.3: on phase 4c's volumes, for each pack: a packed Trainer's eager
+    epoch, PACK_AB_STEPS steps timed in turns with an unpacked Trainer's,
+    and PACK_SCAN_EPOCHS epochs under epoch_scan (and the unpacked
+    replayed epochs once, for their time).  Returns (conv5 runs by path,
+    the numbers)."""
+    from vaegam_tpu_torch.data import DeviceResidentLoader
+    from vaegam_tpu_torch.tools.common import graph_pool_mib
+    from vaegam_tpu_torch.train import Trainer
+
+    vols, covs, glm = dp_volumes(config)
+    loader = DeviceResidentLoader.from_arrays(vols, covs, batch_size=BATCH, shuffle=True,
+                                              seed=SEED, device="cuda")
+    steps = -(-SCAN_VOLS // BATCH)
+    full = [s for s in loader.iter_index_batches() if len(s) == BATCH]
+    by_path, out = {}, {}
+
+    def scan(cfg, tag):
+        t = Trainer(cfg, XU_RANGES, glm, seed=SEED, enable_tb=False, device="cuda",
+                    epoch_scan=True)
+        reset_conv5(conv5_mod)
+        losses = [t.train_epoch(loader) for _ in range(PACK_SCAN_EPOCHS)]
+        torch.cuda.synchronize()
+        runs = conv5_mod.conv5.launches + sum(t.replays.values())
+        secs = [t.epoch_seconds[e] for e in range(PACK_SCAN_EPOCHS)]
+        print(f"conv_pack {tag} epoch_scan: losses {losses}, epochs "
+              f"{[round(s, 4) for s in secs]} s; captures {t.captures}, replays "
+              f"{t.replays}; conv5 {conv5_mod.conv5.launches} launches + "
+              f"{conv5_mod.conv5.captured} captured -> {runs} runs for "
+              f"{PACK_SCAN_EPOCHS * steps} forwards; graph pool {graph_pool_mib()} MiB")
+        if not np.isfinite(losses).all():
+            fail(f"non-finite replayed losses ({tag})")
+        if t.captures != {BATCH: 1, SCAN_VOLS % BATCH: 1} or \
+                conv5_mod.conv5.captured != 2 or runs != PACK_SCAN_EPOCHS * steps:
+            fail(f"epoch_scan ({tag}) did not capture once a width or conv5 did not run "
+                 "once a forward")
+        return runs, dict(losses=losses, epoch_s=secs, steady_epoch_s=statistics.median(secs[1:]),
+                          captures=t.captures, replays=t.replays)
+
+    by_path["pack_scan_unpacked"], out["scan_unpacked"] = scan(config, "off")
+    free_card()
+    for pack in PACKS:
+        tag = f"{pack[0]}x{pack[1]}"
+        cfg = dataclasses.replace(config, conv_pack=pack)
+        t = Trainer(cfg, XU_RANGES, glm, seed=SEED, enable_tb=False, device="cuda")
+        plain = Trainer(config, XU_RANGES, glm, seed=SEED, enable_tb=False, device="cuda")
+        # conv5's launches by trainer: the packed epoch and A/B steps, the
+        # unpacked search step and A/B steps
+        launches = {"packed": 0, "unpacked": 0}
+
+        def counted(name, fn, *a):
+            n0 = conv5_mod.conv5.launches
+            r = fn(*a)
+            torch.cuda.synchronize()
+            launches[name] += conv5_mod.conv5.launches - n0
+            return r
+
+        reset_conv5(conv5_mod)
+        loss = counted("packed", t.train_epoch, loader)
+        # cuDNN's search for the plain B=32
+        counted("unpacked", plain.train_step, *loader.gather(full[0]))
+        ms = {"packed": [], "unpacked": []}
+        for i in range(PACK_AB_STEPS):
+            for name, tr in (("packed", t), ("unpacked", plain)):
+                c, x = loader.gather(full[i % len(full)])
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                counted(name, tr.train_step, c, x)
+                ms[name].append(1e3 * (time.perf_counter() - t0))
+        eager_epoch_s = t.epoch_seconds[0]
+        forwards = {"packed": steps + PACK_AB_STEPS, "unpacked": 1 + PACK_AB_STEPS}
+        med = {k: statistics.median(v) for k, v in ms.items()}
+        print(f"conv_pack {pack} eager: epoch loss {loss:.4f} in {t.epoch_seconds[0]:.2f} s; "
+              f"{PACK_AB_STEPS} steps in turns, median ms packed {med['packed']:.2f} "
+              f"unpacked {med['unpacked']:.2f} (packed/unpacked "
+              f"{med['packed'] / med['unpacked']:.3f}); conv5 launches {launches} for "
+              f"forwards {forwards}")
+        if not np.isfinite(loss) or launches != forwards:
+            fail(f"the packed eager epoch ({pack}) is not finite or conv5 did not run once "
+                 "a forward")
+        by_path[f"pack_{tag}_eager"] = launches["packed"]
+        by_path[f"pack_{tag}_ab_unpacked"] = launches["unpacked"]
+        del t, plain
+        free_card()
+        by_path[f"pack_{tag}_scan"], scan_out = scan(cfg, tag)
+        out[tag] = dict(epoch_loss=loss, eager_epoch_s=eager_epoch_s, step_ms=ms,
+                        step_ms_median=med, packed_over_unpacked=med["packed"] / med["unpacked"],
+                        scan=scan_out)
+        free_card()
+    return by_path, out
+
+
+def drive_pack_bf16(conv5_mod, config):
+    """10a.4: the bf16 recipe (bf16 convs, joint norm statistics) packed
+    (2, 2) against unpacked from one seed: the first step's loss and a
+    deterministic maps forward, then PACK_BF16_EPOCHS eager epochs each;
+    conv5 must not launch.  Returns the numbers."""
+    from vaegam_tpu_torch.data import DeviceResidentLoader
+    from vaegam_tpu_torch.models import forward
+    from vaegam_tpu_torch.models.vaegam import draw_noise
+    from vaegam_tpu_torch.train import Trainer
+
+    vols, covs, glm = dp_volumes(config)
+    loader = DeviceResidentLoader.from_arrays(vols, covs, batch_size=BATCH, shuffle=True,
+                                              seed=SEED, device="cuda")
+    bf16 = dataclasses.replace(config, conv_dtype=torch.bfloat16, fused_norm_stats=True)
+    cfgs = {"packed": dataclasses.replace(bf16, conv_pack=(2, 2)), "unpacked": bf16}
+    trainers = {k: Trainer(c, XU_RANGES, glm, seed=SEED, enable_tb=False, device="cuda")
+                for k, c in cfgs.items()}
+    c, x = loader.gather(next(loader.iter_index_batches()))
+    noise = draw_noise(torch.Generator(device="cuda").manual_seed(SEED), BATCH, config,
+                       "cuda")
+    reset_conv5(conv5_mod)
+    maps, first = {}, {}
+    for k, t in trainers.items():
+        with torch.no_grad():
+            _, aux = forward(t.params, t.consts, c, x, t.config, deterministic=True,
+                             return_maps=True)
+        maps[k] = aux["maps"]
+        first[k] = float(t.train_step(c, x, noise=noise)[0])
+    rl2 = max(float((maps["packed"][m] - maps["unpacked"][m]).norm()
+                    / maps["unpacked"][m].norm()) for m in maps["unpacked"])
+    rel = abs(first["packed"] - first["unpacked"]) / abs(first["unpacked"])
+    epochs = {k: [t.train_epoch(loader) for _ in range(PACK_BF16_EPOCHS)]
+              for k, t in trainers.items()}
+    secs = {k: [t.epoch_seconds[e] for e in range(PACK_BF16_EPOCHS)]
+            for k, t in trainers.items()}
+    launches = conv5_mod.conv5.launches
+    print(f"conv_pack (2, 2) bf16 recipe: first-step loss {first['packed']!r} against "
+          f"{first['unpacked']!r} (rel {rel:.3e}, bound {PACK_BF16_LOSS_RTOL}); maps "
+          f"relative L2 {rl2:.3e} (bound {PACK_BF16_MAP_RL2}); epochs {epochs}, seconds "
+          f"{secs}; conv5 launches {launches}")
+    if not (rel <= PACK_BF16_LOSS_RTOL and rl2 <= PACK_BF16_MAP_RL2
+            and np.isfinite(epochs["packed"]).all()):
+        fail("the packed bf16 recipe disagrees with the unpacked one or is not finite")
+    if launches:
+        fail("conv5 launched on the bf16 recipe")
+    return dict(first_step_loss=first, loss_rel=rel, maps_rel_l2=rl2, epoch_losses=epochs,
+                epoch_s=secs)
+
+
+def run_tool(conv5_mod, module, argv, what):
+    """A study tool's main(argv) in this process, conv5's counters reset
+    first; returns (its result, conv5 launches)."""
+    free_card()
+    reset_conv5(conv5_mod)
+    t0 = time.perf_counter()
+    result = module.main(argv)
+    torch.cuda.synchronize()
+    print(f"{what}: {time.perf_counter() - t0:.1f} s", flush=True)
+    return result, conv5_mod.conv5.launches
+
+
+def drive_phase10(conv5_mod, lap):
+    """Phase 10: conv_pack on the card (10a) and the study tools (10b-10f);
+    `lap` closes each sub-phase's seconds.  Returns (conv5 runs by path,
+    the numbers, the conv5 launch shapes of mni_mesh_dryrun's ranks)."""
+    from vaegam_tpu_torch.models import VAEGAMConfig
+    from vaegam_tpu_torch.tools import (bench_mni_prefetch, bench_packed_conv, bench_recon,
+                                        beta_solve_precision_study, conv5_fullstep_study,
+                                        epoch_scan_diagnosis, epsilon_precision_study,
+                                        mni_mesh_dryrun)
+
+    config = VAEGAMConfig()
+    by_path, out = {}, {}
+    by_path["pack_stacks"], out["stacks"] = drive_pack_stacks(conv5_mod, config)
+    free_card()
+    out["float64"] = drive_pack_float64()
+    free_card()
+    lap("10a_pack_checks")
+    paths, out["train"] = drive_pack_training(conv5_mod, config)
+    by_path.update(paths)
+    out["bf16"] = drive_pack_bf16(conv5_mod, config)
+    lap("10a_pack_training")
+
+    # 10b. the per-layer bench, at the packs 10a trains
+    out["bench_packed_conv"], launches = run_tool(
+        conv5_mod, bench_packed_conv,
+        ["--iters", str(TOOL_ITERS), "--packs", *(f"{a}x{b}" for a, b in PACKS)],
+        "10b bench_packed_conv")
+    if launches:
+        fail("conv5 launched in bench_packed_conv")
+    lap("10b_bench_packed_conv")
+
+    # 10c. conv5's share of the full step, eager and replayed
+    rounds, iters = 2, 20
+    res, launches = run_tool(conv5_mod, conv5_fullstep_study,
+                             ["--rounds", str(rounds), "--iters", str(iters)],
+                             "10c conv5_fullstep_study")
+    runs = launches + sum(res["replays"]["kernel"].values())
+    if runs != 2 * (1 + rounds) * iters:
+        fail(f"conv5 ran {runs} times for {2 * (1 + rounds) * iters} kernel-arm forwards")
+    by_path["conv5_fullstep"], out["conv5_fullstep"] = runs, res
+    lap("10c_conv5_fullstep")
+
+    # 10d. the eval-width sweep: 1 subject x 98 volumes at widths 32 and 128
+    res, launches = run_tool(conv5_mod, bench_recon,
+                             ["--n_subjs", "1", "--n_vols", str(ORACLE_VOLS),
+                              "--widths", str(BATCH), str(WIDE_EVAL_BATCH)],
+                             "10d bench_recon")
+    forwards = sum(4 * -(-ORACLE_VOLS // int(w)) for w in res["widths"])
+    if launches != forwards:
+        fail(f"conv5 launched {launches} times in bench_recon for {forwards} forwards")
+    by_path["bench_recon"], out["bench_recon"] = launches, res
+    lap("10d_bench_recon")
+
+    # 10e. the precision studies
+    eps_steps = 20
+    res, launches = run_tool(conv5_mod, epsilon_precision_study,
+                             ["--steps", str(eps_steps)], "10e epsilon_precision_study")
+    if launches != 2 * eps_steps:
+        fail(f"conv5 launched {launches} times in the epsilon study for {2 * eps_steps} steps")
+    by_path["epsilon_study"], out["epsilon_study"] = launches, res
+    out["beta_solve_study"], _ = run_tool(conv5_mod, beta_solve_precision_study,
+                                          ["--n_subj", str(STUDY_SUBJECTS)],
+                                          "10e beta_solve_precision_study")
+    lap("10e_precision_studies")
+
+    # 10f. the MNI grid: the host loaders, replayed epochs, then data
+    # parallel over ranks that share the card
+    mni_loaders, mni_epochs = ("data", "prefetch"), 1
+    res, launches = run_tool(conv5_mod, bench_mni_prefetch,
+                             ["--n_subjs", "2", "--n_vols", "49", "--batch", str(MNI_BATCH),
+                              "--epochs", str(mni_epochs), "--loaders", *mni_loaders],
+                             "10f bench_mni_prefetch")
+    forwards = len(mni_loaders) * (1 + mni_epochs) * -(-98 // MNI_BATCH)
+    if launches != forwards:
+        fail(f"conv5 launched {launches} times in bench_mni_prefetch for {forwards} forwards")
+    by_path["mni_prefetch"], out["mni_prefetch"] = launches, res
+    diag_epochs, probe_every = 4, 3
+    res, launches = run_tool(conv5_mod, epoch_scan_diagnosis,
+                             ["--epochs", str(diag_epochs), "--probe_every", str(probe_every),
+                              "--batch_size", str(MNI_BATCH)], "10f epoch_scan_diagnosis")
+    runs = launches + sum(res["replays"].values())
+    probes = sum(1 for e in range(diag_epochs) if e % probe_every == 0 or e < 3)
+    forwards = diag_epochs * -(-98 // MNI_BATCH) + 2 * probes
+    if runs != forwards or res["captures"] != {MNI_BATCH: 1, 98 % MNI_BATCH: 1}:
+        fail(f"epoch_scan_diagnosis: conv5 ran {runs} times for {forwards} forwards, "
+             f"captures {res['captures']}")
+    by_path["epoch_scan_diagnosis"] = runs
+    out["epoch_scan_diagnosis"] = {k: v for k, v in res.items() if k != "records"}
+    out["epoch_scan_diagnosis"]["epochs"] = [r for r in res["records"] if "epoch" in r]
+    res, _ = run_tool(conv5_mod, mni_mesh_dryrun, ["--n_ranks", str(MNI_DP_RANKS)],
+                      "10f mni_mesh_dryrun")
+    launches = [r["conv5_launches"] for r in res["ranks"]]
+    if res["backend"] != "gloo" or not all(r["device"].startswith("cuda")
+                                           for r in res["ranks"]):
+        fail(f"mni_mesh_dryrun's ranks did not share the card over gloo: {res['ranks']}")
+    if launches != [res["steps"]] * MNI_DP_RANKS:
+        fail(f"conv5 launched {launches} times on mni_mesh_dryrun's ranks for "
+             f"{res['steps']} forwards each")
+    by_path["mni_mesh_dryrun_ranks"], out["mni_mesh_dryrun"] = sum(launches), res
+    rank_shapes = {(res["batch_rows"], *CONV5_SHAPES["mni"][1:])}
+    lap("10f_mni")
+    return by_path, out, rank_shapes
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", default=None,
@@ -2143,9 +2597,13 @@ def main(argv=None) -> int:
     finally:
         shutil.rmtree(work, ignore_errors=True)
         shutil.rmtree(study_root, ignore_errors=True)
+
+    # 10. conv_pack on the card (10a), then the study tools (10b-10f)
+    with Conv5Shapes(conv5_mod) as p10_shapes:
+        p10_launches, phase10, p10_rank_shapes = drive_phase10(conv5_mod, lap)
     phase_s["total"] = time.perf_counter() - t_start
     print(json.dumps({"phase_seconds": phase_s, "card": smi}))
-    seen = shapes.seen | dp_shapes.seen | rank_shapes
+    seen = shapes.seen | dp_shapes.seen | rank_shapes | p10_shapes.seen | p10_rank_shapes
     unchecked = seen - set(CONV5_SHAPES.values())
     print(f"conv5 launch shapes on the main path and the ranks: {sorted(seen)}; all "
           f"checked against the plain version in phase 3: {not unchecked}")
@@ -2154,7 +2612,8 @@ def main(argv=None) -> int:
     if oracle_failed:
         fail(oracle_failed)
 
-    # 10. numbers
+    # 11. numbers
+    print(json.dumps({"phase10": phase10}))
     kernel = {
         "name": "conv5", "route": "cuda",
         "source": "vaegam_tpu_torch/ops/csrc/conv5.cu",
@@ -2162,7 +2621,7 @@ def main(argv=None) -> int:
         "launches": cli_launches["cli_fp32"],
         "launches_by_path": dict(train_step=step_launches, float64_step=f64_launches,
                                  **scan_launches, **cli_launches, oracle=oracle_launches,
-                                 **oracle_scan_launches, **dp_launches),
+                                 **oracle_scan_launches, **dp_launches, **p10_launches),
         "max_abs_err": err,
         "ms": timing["ms"], "plain_ms": timing["plain_ms"], "bound_ms": timing["bound_ms"],
         "bound_by": timing["bound_by"], "library_ms": timing["library_ms"],
@@ -2185,7 +2644,7 @@ def main(argv=None) -> int:
     print(json.dumps({"beta_maps": betas}))
     print(json.dumps({"data_parallel": dp}))
     print(smi)
-    # 11. the last line
+    # 12. the last line
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -8,7 +8,12 @@ averaged maps and recovery check, at every default) in these arms:
   fp32  the oracle as ``chip_smoke.py`` phase 7 runs it: float32, conv5
         through its CUDA kernel, batches gathered from the device cache;
   f64   a float64 model (JAX's partial float64: norm statistics and sigmoid
-        in float32), conv5 off, fed by the host DataLoader.
+        in float32), conv5 off, fed by the host DataLoader;
+  tf32  the fp32 arm with cuBLAS and cuDNN allowed TF32 (10-bit mantissa
+        products, float32 sums) once the Trainer has set up the card: the
+        reduced-precision float32 products an accelerator gives a dot or
+        conv at XLA's DEFAULT precision, which the JAX package never
+        raises (conv5's kernel stays full float32).
 
 Both arms see the same batches: the host loader and the device cache take
 the same epoch-addressed shuffle, ``default_rng((seed, epoch))``; the
@@ -98,7 +103,7 @@ def run_one(arm: str, seed: int, epochs: int, csv: str, run_dir: str,
         torch.backends.cudnn.deterministic = True
     kw = dict(glm_reg_scale=1.0, neural_covariates=False, img_shape=img_shape,
               qu_s_cholesky=True, fused_norm_stats=True)
-    if arm == "fp32":
+    if arm in ("fp32", "tf32"):
         config = VAEGAMConfig(**kw)
         loaders = setup_device_loaders(batch_size=32, train_csv=csv, test_csv=csv,
                                        seed=seed, device=device)
@@ -110,6 +115,9 @@ def run_one(arm: str, seed: int, epochs: int, csv: str, run_dir: str,
     trainer = Trainer(config, get_xu_ranges([csv, csv]),
                       glm_maps=build_glm_maps(1000.0, img_shape), save_dir=run_dir,
                       seed=seed, enable_tb=False, device=device)
+    if arm == "tf32":  # after the Trainer's configure_cuda_backends turned TF32 off
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.backends.cudnn.allow_tf32 = True
     trace = []
     t0 = time.time()
     for _ in range(epochs):

@@ -282,12 +282,6 @@ def test_trainer_init_matches_jax_trainer():
                                    err_msg=path)
 
 
-@pytest.mark.parametrize("field,value", [("conv_pack", (2, 2))])
-def test_config_fields_not_ported_raise(field, value):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        VAEGAMConfig(**{field: value})
-
-
 def test_qu_s_cholesky_init_matches_jax():
     """The raw factor is JAX's bit for bit (diag(0.5 log 2) for each of the
     6 motion GPs, no qu_S) and resolves to 2I: fp32 exp and product, atol

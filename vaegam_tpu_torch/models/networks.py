@@ -31,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.conv5 import conv5
+from ..ops.packed_conv import packed_conv3d
 from ..parallel.mesh import all_reduce_sum
 from ..utils import prng
 
@@ -191,19 +192,35 @@ def _linear(x, p):
     return F.linear(x, p["w"], p["b"])
 
 
-def _conv(x, p, stride, conv_dtype=None):
+def _conv(x, p, stride, conv_dtype=None, pack=None, pack_padding=((0, 0),) * 3):
     """conv_dtype None: fp32 with the bias fused.  Otherwise x is already in
     conv_dtype (cast once at stack entry, so activations stay in it between
     layers); the weight is cast per call, the fp32 bias add promotes and the
-    result returns to x's dtype, as the JAX recipe's ``(y + b).astype``."""
-    if conv_dtype is None:
-        return F.conv3d(x, p["w"], p["b"], stride=stride)
-    y = F.conv3d(x, p["w"].to(conv_dtype), None, stride=stride)
-    return (y + p["b"].reshape(-1, 1, 1, 1)).to(x.dtype)
+    result returns to x's dtype, as the JAX recipe's ``(y + b).astype``.
+
+    pack=(s_h, s_w) lane-packs a stride-1 conv (``ops.packed_conv``, the
+    same math) after padding by ``pack_padding``; the weight is cast first
+    and packed after, as in JAX."""
+    w = p["w"] if conv_dtype is None else p["w"].to(conv_dtype)
+    bias = p["b"] if conv_dtype is None else None
+    if pack is not None and stride == 1:
+        y = packed_conv3d(x, w, pack_padding, pack, bias=bias)
+    else:
+        y = F.conv3d(x, w, bias, stride=stride)
+    return y if conv_dtype is None else (y + p["b"].reshape(-1, 1, 1, 1)).to(x.dtype)
 
 
-def _conv_t(x, p, stride=1, padding=0, output_padding=0, conv_dtype=None):
-    """Transposed conv with the precision rule of :func:`_conv`."""
+def _conv_t(x, p, stride=1, padding=0, output_padding=0, conv_dtype=None, pack=None):
+    """Transposed conv with the precision rule of :func:`_conv`.
+
+    pack=(s_h, s_w) lane-packs a stride-1 layer as the conv it equals: the
+    (I, O, k...) weight flipped on its three spatial axes with I and O
+    swapped (the JAX package's unflipped DHWIO kernel, utils/jax_params.py),
+    padded by k-1-padding."""
+    if pack is not None and stride == 1:
+        w = p["w"].flip(2, 3, 4).transpose(0, 1)
+        pads = tuple((k - 1 - padding,) * 2 for k in w.shape[2:])
+        return _conv(x, {"w": w, "b": p["b"]}, 1, conv_dtype, pack, pads)
     kw = dict(stride=stride, padding=padding, output_padding=output_padding)
     if conv_dtype is None:
         return F.conv_transpose3d(x, p["w"], p["b"], **kw)
@@ -212,7 +229,7 @@ def _conv_t(x, p, stride=1, padding=0, output_padding=0, conv_dtype=None):
 
 
 def encode(params, x, conv5_kernel: bool = True, conv_dtype=None,
-           stat_dtype=None, mesh=None, global_rows=None):
+           stat_dtype=None, mesh=None, global_rows=None, conv_pack=None):
     """x: (B, D, H, W) -> (mu, u, d), each (B, num_latents).
 
     conv_dtype (e.g. torch.bfloat16) selects the conv stack's precision;
@@ -223,24 +240,26 @@ def encode(params, x, conv5_kernel: bool = True, conv_dtype=None,
     routes the fp32 conv5 through ``ops.conv5`` (the hand-written CUDA
     kernel on CUDA tensors, its plain version on CPU tensors) instead of
     ``F.conv3d``; a half-precision conv5 takes the stock conv, as the JAX
-    package's Pallas conv5 is fp32-only.
+    package's Pallas conv5 is fp32-only.  conv_pack=(s_h, s_w) lane-packs
+    the stride-1 convs (conv1, conv3, and conv5 where it does not take the
+    kernel, which keeps precedence as JAX's ``pallas_conv5`` does).
     """
-    cd = conv_dtype
+    cd, cp = conv_dtype, conv_pack
     h = x[:, None]  # NCDHW with C=1
     if cd is not None:
         h = h.to(cd)  # one downcast; activations stay cd across the stack
     def norm(h, p):
         return batch_stat_norm(h, p, 1, stat_dtype, mesh, global_rows)
 
-    h = F.relu(_conv(norm(h, params["bn1"]), params["conv1"], 1, cd))
+    h = F.relu(_conv(norm(h, params["bn1"]), params["conv1"], 1, cd, cp))
     h = F.relu(_conv(h, params["conv2"], 2, cd))
-    h = F.relu(_conv(norm(h, params["bn3"]), params["conv3"], 1, cd))
+    h = F.relu(_conv(norm(h, params["bn3"]), params["conv3"], 1, cd, cp))
     h = F.relu(_conv(h, params["conv4"], 2, cd))
     h5 = norm(h, params["bn5"])
     if conv5_kernel and cd is None:
         h = F.relu(conv5(h5, params["conv5"]["w"], params["conv5"]["b"]))
     else:
-        h = F.relu(_conv(h5, params["conv5"], 1, cd))
+        h = F.relu(_conv(h5, params["conv5"], 1, cd, cp))
     h = h.reshape(h.shape[0], -1).to(x.dtype)  # channel-major; FC stack in fp32
     h = F.relu(_linear(h, params["fc1"]))
     h = F.relu(_linear(h, params["fc2"]))
@@ -252,7 +271,7 @@ def encode(params, x, conv5_kernel: bool = True, conv_dtype=None,
 
 def decode(params, z, img_shape=REFERENCE_IMG_SHAPE, stat_groups: int = 1,
            conv_dtype=None, fp32_final: bool = False, stat_dtype=None,
-           mesh=None, global_rows=None):
+           mesh=None, global_rows=None, conv_pack=None):
     """z: (B*, z_dim) -> sigmoid volume flattened to (B*, prod(img_shape)).
 
     stat_groups: contiguous batch groups for the batch-stat norms.
@@ -262,9 +281,10 @@ def decode(params, z, img_shape=REFERENCE_IMG_SHAPE, stat_groups: int = 1,
     and the sigmoid's (its output's) when given; by default the sigmoid
     runs in z's dtype.  Under a data-parallel ``mesh`` z holds this rank's
     rows of each group and ``global_rows`` counts the global decode's rows
-    (see :func:`batch_stat_norm`).
+    (see :func:`batch_stat_norm`).  conv_pack=(s_h, s_w) lane-packs the
+    stride-1 layers convt1, convt3 and convt5 (convt5 under fp32_final too).
     """
-    cd, sd = conv_dtype, stat_dtype
+    cd, sd, cp = conv_dtype, stat_dtype, conv_pack
 
     def norm(h, p):
         return batch_stat_norm(h, p, stat_groups, sd, mesh, global_rows)
@@ -278,15 +298,15 @@ def decode(params, z, img_shape=REFERENCE_IMG_SHAPE, stat_groups: int = 1,
     h = h.reshape(-1, c, *seed)
     if cd is not None:
         h = h.to(cd)  # one downcast; activations stay cd across the stack
-    h = F.relu(_conv_t(norm(h, params["bnt1"]), params["convt1"], conv_dtype=cd))
+    h = F.relu(_conv_t(norm(h, params["bnt1"]), params["convt1"], conv_dtype=cd, pack=cp))
     h = F.relu(_conv_t(h, params["convt2"], 2, (1, 0, 1), (1, 0, 1), conv_dtype=cd))
-    h = F.relu(_conv_t(norm(h, params["bnt3"]), params["convt3"], conv_dtype=cd))
+    h = F.relu(_conv_t(norm(h, params["bnt3"]), params["convt3"], conv_dtype=cd, pack=cp))
     h = F.relu(_conv_t(h, params["convt4"], 2, conv_dtype=cd))
     h = norm(h, params["bnt5"])
     if fp32_final and cd is not None:
-        h = _conv_t(h.to(z.dtype), params["convt5"])
+        h = _conv_t(h.to(z.dtype), params["convt5"], pack=cp)
     else:
-        h = _conv_t(h, params["convt5"], conv_dtype=cd)
+        h = _conv_t(h, params["convt5"], conv_dtype=cd, pack=cp)
     if any(crop):
         h = h[:, :, : h.shape[2] - crop[0], : h.shape[3] - crop[1],
               : h.shape[4] - crop[2]]

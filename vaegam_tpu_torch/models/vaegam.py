@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from .._device import resolve_device
+from ..ops.packed_conv import check_pack
 from ..utils import prng
 from ..utils.signals import hrf
 from . import gp as gp_mod
@@ -52,13 +53,6 @@ MOTION_SLICE = slice(1, 7)  # the 6 motion covariates within COVARIATE_KEYS
 TR_SECONDS = 1.4
 HRF_WINDOW_SECONDS = 20.0
 
-# fields of the JAX config this port does not implement yet, with the
-# ROADMAP module item that ports them
-_NOT_YET = {
-    "conv_pack": "lane-packed convs, ROADMAP module item 11",
-}
-
-
 @dataclasses.dataclass(frozen=True)
 class VAEGAMConfig:
     """Static model configuration; fields and defaults as the JAX package's.
@@ -73,6 +67,8 @@ class VAEGAMConfig:
     each GP posterior covariance as L L^T (``gp["qu_S_raw"]``);
     ``x64_epsilon`` stores epsilon in float64 (Adam updates it in float64,
     the log-likelihood reads it as float32), as the reference does.
+    ``conv_pack=(s_h, s_w)`` lane-packs the stride-1 convs of both stacks
+    (``ops.packed_conv``: the same math; off by default, a measured arm).
     ``dtype`` float64 builds every parameter and const in float64 and runs
     the model as JAX's float64 does: the norm statistics and the decoder's
     sigmoid in float32, the rest in float64.  It needs ``conv5_kernel``
@@ -107,10 +103,10 @@ class VAEGAMConfig:
             raise ValueError(
                 "a float64 model needs conv5_kernel=False: the conv5 kernel "
                 "is float32, as the JAX package's Pallas conv5 is")
-        defaults = {f.name: f.default for f in dataclasses.fields(self)}
-        for name, where in _NOT_YET.items():
-            if getattr(self, name) != defaults[name]:
-                raise NotImplementedError(f"{name} is not ported yet ({where})")
+        if self.conv_pack is not None:
+            pack = tuple(int(s) for s in self.conv_pack)
+            check_pack(3, 3, pack)  # every packed layer's H x W kernel is 3x3
+            object.__setattr__(self, "conv_pack", pack)
 
     @property
     def enc_cd(self):
@@ -322,7 +318,7 @@ def forward(
 
     # --- encoder & latent sample ------------------------------------------
     mu, u, d = encode(params["enc"], x, config.conv5_kernel, config.enc_cd,
-                      config.stat_dtype, mesh, b_all)
+                      config.stat_dtype, mesh, b_all, config.conv_pack)
     d = d_floor(d, mesh)
     if deterministic:
         z = mu
@@ -340,6 +336,7 @@ def forward(
         stat_groups=1 if config.fused_norm_stats else n_cov + 1,
         conv_dtype=config.dec_cd, fp32_final=config.dec_fp32_final,
         stat_dtype=config.stat_dtype, mesh=mesh, global_rows=(n_cov + 1) * b_all,
+        conv_pack=config.conv_pack,
     ).reshape(n_cov + 1, b, config.img_dim)
     # a float64 model decodes float32 maps (JAX's sigmoid cast): the sums
     # below promote them to float64, as jnp's do

@@ -156,16 +156,38 @@ drives and reports every later phase before it exits non-zero):
      gloo (the full MNI model, one row a rank, its conv5 launch shape
      checked in phase 3); conv5 must run once a forward on each path that
      has it;
- 11. one JSON line with the seconds of each phase and of the whole run
+ 11. the TPU's product arithmetic (``VAEGAMConfig(tpu_products=True)``:
+     both operands of every product rounded to bfloat16, float32 sums,
+     forward and backward), at the oracle's config:
+     11a. conv5's one-pass path (``conv5_cuda(..., one_pass=True)``)
+     against ``F.conv3d`` on rounded operands (TF32 off) at the shapes the
+     arm launches and a few others (atol 2e-5 at unit scale; it must sit
+     further than 10x that from the full float32 conv), its backward, its
+     HMMA count beside the split path's, and device times of the path, the
+     split path, the plain version and ``F.conv3d`` at the main and MNI
+     shapes;
+     11b. one full-width step in the arm (fp32, conv5 one-pass) against the
+     same step in float64 in the arm (same weights, noise and sites): loss
+     within TPU_LOSS_RTOL, each gradient leaf within its group's bound
+     (TPU_GRAD_GROUPS) of its largest entry, also in the arm's step again
+     and on cuDNN's deterministic algorithms; the unrounded fp32 loss at
+     least TPU_LIVE_RATIO times further and its gradient beyond the bound on
+     TPU_LIVE_LEAVES; 29 / 29 / 27 product sites by kind in both, none
+     without the arm, conv5 once;
+     11c. 30 oracle epochs in the arm (``--tpu_products``), eager and under
+     ``--epoch_scan``: every loss finite, skips and fallbacks printed,
+     conv5 once a train and recon forward; every one-pass launch shape
+     checked in 11a;
+ 12. one JSON line with the seconds of each phase and of the whole run
      (after the imports) beside the card, then (phase 7's verdict read
-     here) one JSON line with phase 10's numbers, one
+     here) one JSON line with phase 10's numbers, one with phase 11's, one
      with the kernels' numbers (conv5's launches by path,
      the epoch_scan paths' as launches plus replays, the ranks'), one with
      the step time, one with the float64 step, one with epoch_scan's
      (phases 4c and 7b), one with the CLI's numbers (converters included),
      one with the output stage's numbers, one with the oracle's, one with
      beta_maps' and one with data parallel's;
- 12. as the last line: {"ok": true, "device": {...}}.
+ 13. as the last line: {"ok": true, "device": {...}}.
 Imports nothing of JAX or of the JAX package.
 """
 
@@ -274,6 +296,32 @@ def device_ms(fn, iters: int = 50, warmup: int = 10):
             sorted(e.key for e in kernels))
 
 
+def graph_ms(fn, iters: int = 50, reps: int = 5) -> float:
+    """Mean device time of fn() from CUDA events around replays of a CUDA
+    graph of `iters` calls: the kernels with no host launch between them.
+    Phase 11a's times: late in the run torch.profiler has kept part of a
+    window or none of it."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * iters)
+
+
 # ---------------------------------------------------------------------------
 # conv5
 # ---------------------------------------------------------------------------
@@ -312,15 +360,19 @@ TIMED_CONV5_SHAPES = ("main", "mni")
 
 class Conv5Shapes:
     """Records the shape (B, Ci, D, H, W, Co) of every conv5 kernel launch
-    while installed; the launch count stays conv5_cuda's own."""
+    while installed, those of the one-pass path also in ``one_pass``; the
+    launch count stays conv5_cuda's own."""
 
     def __init__(self, conv5_mod):
-        self.mod, self.launch, self.seen = conv5_mod, conv5_mod.conv5_cuda, set()
+        self.mod, self.launch = conv5_mod, conv5_mod.conv5_cuda
+        self.seen, self.one_pass = set(), set()
 
     def __enter__(self):
-        def recorded(x, w, b):
+        def recorded(x, w, b, one_pass=False):
             self.seen.add((*x.shape, w.shape[0]))
-            return self.launch(x, w, b)
+            if one_pass:
+                self.one_pass.add((*x.shape, w.shape[0]))
+            return self.launch(x, w, b, one_pass)
         self.mod.conv5_cuda = recorded
         return self
 
@@ -2514,6 +2566,346 @@ def drive_phase10(conv5_mod, lap):
     return by_path, out, rank_shapes
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the TPU's product arithmetic (VAEGAMConfig(tpu_products=True))
+# ---------------------------------------------------------------------------
+
+# the oracle's config (control_experiment at its defaults) in the arm
+TPU_ORACLE_KW = dict(glm_reg_scale=1.0, neural_covariates=False, qu_s_cholesky=True,
+                     fused_norm_stats=True)
+# products by kind in one step of the oracle's config, as
+# tests/test_torch_port_tpu_products.py pins them against JAX's jaxpr
+TPU_ORACLE_SITES = {"forward": 29, "input_grad": 29, "weight_grad": 27}
+# 11b: the arm's fp32 step against its float64 step (same weights, noise
+# and rounding sites): loss rtol; each gradient leaf's distance as a share
+# of its largest entry, held to the bound of the first group of
+# TPU_GRAD_GROUPS with a prefix of the leaf's name (about 3x the group's
+# worst reading on an H100); the same bounds hold the arm's step again and
+# a witness, the arm's step on cuDNN's deterministic algorithms (other
+# summation orders of the same rounded products).  The fp32 step without
+# the arm must sit at least TPU_LIVE_RATIO times further from the arm's
+# fp32 loss than float64 does, and beyond its bound on each leaf of
+# TPU_LIVE_LEAVES, so that a step with no rounding fails the check.
+# Read on an H100: loss 7.48e-7; the encoder's leaves 2e-3..0.36
+# (enc/bn1/scale), the decoder's 5e-4..0.045, the GP's scales and epsilon
+# 2e-3..0.087, the output layer and the gain bank 7e-7..1.5e-4 (without the
+# arm: 4e-6..6.5e-3).  The fp32 and float64 sums part by ~1e-7, which moves
+# the bfloat16 rounding of values near a rounding boundary, and the
+# encoder's gradients, sums that cancel over the volume, amplify the flips:
+# another summation order alone (the witness; or the same step again,
+# cuDNN's atomics) moves enc/bn1/scale by 0.04..0.1 in the arm, while
+# without the arm fp32 sits ~1e-4 of a leaf from float64 (phase 10a).  The
+# float64 CPU test (tests/test_torch_port_tpu_products.py) holds the arm's
+# gradients to JAX's at 1e-7.
+TPU_LOSS_RTOL, TPU_LIVE_RATIO = 1e-6, 10.0
+TPU_GRAD_GROUPS = (  # (group, leaf-name prefixes, bound)
+    ("output layer", ("dec/convt5/", "dec/bnt5/"), 5e-4),
+    ("gain bank", ("gp/qu_m", "gp/sa", "gp/logstd"), 4e-4),
+    ("decoder", ("dec/",), 0.15),
+    ("GP scales, epsilon", ("gp/", "epsilon"), 0.3),
+    ("encoder", ("enc/",), 1.1),
+)
+# the weights of the output layer and of the gain bank's mean and scale;
+# not convt5's bias (its gradient is the cotangent's unrounded sum) nor
+# logstd (it reads the rounded forward only through the residuals)
+TPU_LIVE_LEAVES = ("dec/convt5/w", "dec/bnt5/scale", "dec/bnt5/shift", "gp/qu_m", "gp/sa")
+TPU_TIMED_SHAPES = ("main", "mni")
+
+
+def hmma_by_function(lib) -> dict:
+    """HMMA instructions of each kernel function in a built library
+    (cuobjdump --dump-sass), by mangled name."""
+    from vaegam_tpu_torch.ops.build import find_nvcc
+
+    cuobjdump = os.path.join(os.path.dirname(find_nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "--dump-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            counts[name] = 0
+        elif name is not None and "HMMA" in line:
+            counts[name] += 1
+    return counts
+
+
+def one_pass_bounds(shape):
+    """(bound_ms, bound_by): one TF32 tensor-core pass over the conv's
+    products against the bytes floor."""
+    bsz, ci, d, h, wd, co = shape
+    n_out = bsz * co * (d - 2) * (h - 2) * (wd - 2)
+    tc_s = 2.0 * n_out * 27 * ci / TF32_FLOPS
+    bytes_s = 4.0 * (bsz * ci * d * h * wd + co * ci * 27 + co + n_out) / HBM_BYTES_PER_S
+    return 1e3 * max(tc_s, bytes_s), "operations" if tc_s >= bytes_s else "bytes"
+
+
+def check_conv5_one_pass(conv5_mod, lib, names):
+    """11a: conv5's one-pass path against its plain version (``F.conv3d`` on
+    bfloat16-rounded operands, TF32 off) at `names` of CONV5_SHAPES, forward
+    and backward; device times (``graph_ms``) of the path, the split path,
+    the plain version and ``F.conv3d`` at TPU_TIMED_SHAPES; its HMMA count.  Returns the numbers."""
+    import torch.nn.functional as F
+    from vaegam_tpu_torch.ops.products import round_bf16
+
+    hmma = hmma_by_function(lib)
+    one = {k: v for k, v in hmma.items() if "ILb1E" in k}
+    split = {k: v for k, v in hmma.items() if "ILb0E" in k}
+    print(f"HMMA instructions by kernel path: one-pass {sorted(one.values())}, split "
+          f"{sorted(split.values())}")
+    if len(one) != 1 or len(split) != 1 or not 0 < sum(one.values()) < sum(split.values()):
+        fail(f"conv5's one-pass path has no tensor-core instruction of its own: {hmma}")
+    out = {"hmma_one_pass": sum(one.values()), "hmma_split": sum(split.values())}
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 11)
+    errs = {}
+    for name in names:
+        shape = CONV5_SHAPES[name]
+        x, w, b = conv5_inputs(shape, gen)
+        got = conv5_mod.conv5_cuda(x, w, b, one_pass=True)
+        xr, wr = round_bf16(x), round_bf16(w)
+        want = F.conv3d(xr, wr, b)
+        full = F.conv3d(x, w, b)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        tol = 2e-5 * max(1.0, float(want.abs().max()))
+        live = float((full - want).abs().max())
+        # the backward rounds the cotangent and the saved operands; the
+        # bias gradient is the unrounded cotangent's sum
+        xs = [t.clone().requires_grad_(True) for t in (x, w, b)]
+        g = torch.randn(want.shape, generator=gen, device="cuda")
+        gk = torch.autograd.grad(conv5_mod.conv5(*xs, one_pass=True), xs, g)
+        xp = [t.clone().requires_grad_(True) for t in (xr, wr)]
+        gp = (*torch.autograd.grad(F.conv3d(*xp), xp, round_bf16(g)), g.sum(dim=(0, 2, 3, 4)))
+        gerr = max(float((a - c).abs().max() / max(1.0, float(c.abs().max())))
+                   for a, c in zip(gk, gp))
+        print(f"conv5 one-pass {name} {tuple(x.shape)}: max_abs_err {err:.3e} against "
+              f"F.conv3d on rounded operands (tol {tol:.1e}); {live:.3e} from the full "
+              f"float32 conv; grads max scaled err {gerr:.3e} (tol 2e-4)")
+        if not err <= tol:
+            fail(f"conv5's one-pass path disagrees with its plain version at {name}")
+        if not live > 10 * tol:
+            fail(f"conv5's one-pass check at {name} cannot tell rounded from full float32")
+        if not gerr <= 2e-4:
+            fail(f"conv5's one-pass gradients disagree at {name}")
+        errs[name] = err
+        if name not in TPU_TIMED_SHAPES:
+            continue
+        prefix = "" if name == "main" else f"{name}_"
+        fns = {"ms": lambda: conv5_mod.conv5_cuda(x, w, b, one_pass=True),
+               "split_ms": lambda: conv5_mod.conv5_cuda(x, w, b),
+               "library_ms": lambda: F.conv3d(xr, wr, b)}
+        if name == "main":
+            fns["plain_ms"] = lambda: conv5_mod.conv5_plain_bf16(x, w, b)
+        for key, fn in fns.items():
+            ms = graph_ms(fn)
+            if not ms > 0:
+                fail(f"no device time for conv5 one-pass {name} {key}")
+            out[prefix + key] = ms
+        out[prefix + "bound_ms"], by = one_pass_bounds(shape)
+        if name == "main":
+            out["bound_by"] = by
+        print(f"conv5 one-pass {name}: {out[prefix + 'ms']:.5f} ms a call (CUDA events "
+              f"around graph replays); split path {out[prefix + 'split_ms']:.5f}; F.conv3d on "
+              f"rounded operands {out[prefix + 'library_ms']:.5f}"
+              + (f"; plain {out['plain_ms']:.5f}" if name == "main" else "")
+              + f"; bound {out[prefix + 'bound_ms']:.5f} ms (one TF32 pass)")
+    out["max_abs_err"] = errs.get("main", max(errs.values()))
+    out["max_abs_err_by_shape"] = errs
+    return out
+
+
+def tpu_step(config, params, consts, covs, x, noise, dtype):
+    """One forward and backward of `config` in `dtype` from `params`: (loss,
+    gradients by leaf, product sites by kind)."""
+    from vaegam_tpu_torch.models.vaegam import forward
+    from vaegam_tpu_torch.ops import products
+    from vaegam_tpu_torch.utils.tree import tree_items, tree_map
+
+    prm = tree_map(lambda t: t.detach().to(dtype).requires_grad_(True), params)
+    cst = {k: None if v is None else v.to(dtype) for k, v in consts.items()}
+    products.reset_sites()
+    loss, _ = forward(prm, cst, covs.to(dtype), x.to(dtype), config,
+                      noise=tuple(n.to(dtype) for n in noise))
+    leaves = tree_items(prm)
+    grads = torch.autograd.grad(loss, [t for _, t in leaves])
+    torch.cuda.synchronize()
+    return (float(loss.detach()), {p: g.double() for (p, _), g in zip(leaves, grads)},
+            products.site_counts())
+
+
+def drive_tpu_step(conv5_mod):
+    """11b: one full-width step of the oracle's config in the arm (fp32,
+    conv5 on its one-pass path) against the same step in float64 in the
+    arm (conv5 through products.conv3d), same weights, noise and rounding
+    sites, on the wide inducing grids; the fp32 step without the arm beside
+    them.  Returns the numbers."""
+    from vaegam_tpu_torch.models import VAEGAMConfig, init_model
+    from vaegam_tpu_torch.models.vaegam import draw_noise
+
+    arm = VAEGAMConfig(tpu_products=True, **TPU_ORACLE_KW)
+    arm64 = dataclasses.replace(arm, conv5_kernel=False)
+    vols, covs, glm = synthetic_data(arm, BATCH, SEED + 11)
+    params, consts = init_model(arm, DP_XU_RANGES, glm, seed=SEED, device="cuda")
+    covs, x = torch.tensor(covs, device="cuda"), torch.tensor(vols, device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 11)
+    noise = draw_noise(gen, BATCH, arm, "cuda")
+    reset_conv5(conv5_mod)
+    t0 = time.perf_counter()
+    l32, g32, sites32 = tpu_step(arm, params, consts, covs, x, noise, torch.float32)
+    step_s = time.perf_counter() - t0
+    launches = conv5_mod.conv5.launches
+    l64, g64, sites64 = tpu_step(arm64, params, consts, covs, x, noise, torch.float64)
+    off = dataclasses.replace(arm, tpu_products=False)
+    plain, g_off, sites_off = tpu_step(off, params, consts, covs, x, noise, torch.float32)
+    _, g_off_again, _ = tpu_step(off, params, consts, covs, x, noise, torch.float32)
+    _, g_again, _ = tpu_step(arm, params, consts, covs, x, noise, torch.float32)
+    cudnn = torch.backends.cudnn
+    saved = cudnn.benchmark, cudnn.deterministic
+    cudnn.benchmark, cudnn.deterministic = False, True
+    try:
+        _, g_wit, _ = tpu_step(arm, params, consts, covs, x, noise, torch.float32)
+    finally:
+        cudnn.benchmark, cudnn.deterministic = saved
+
+    def share(g, ref=g64):
+        return {p: float((g[p] - ref[p]).abs().max() / g64[p].abs().max().clamp_min(1e-300))
+                for p in g64}
+
+    def group(leaf):
+        return next(name for name, pre, _ in TPU_GRAD_GROUPS if leaf.startswith(pre))
+
+    bounds = {name: b for name, _, b in TPU_GRAD_GROUPS}
+
+    def bound(leaf):
+        return bounds[group(leaf)]
+
+    shares, off_shares = share(g32), share(g_off)
+    again, wit, wit_arm = share(g_again), share(g_wit), share(g_wit, g32)
+    # the same step twice: how far a summation order moves the gradient
+    # with the rounding and without it
+    order = {"arm": max(share(g_again, g32).values()),
+             "no_arm": max(share(g_off_again, g_off).values())}
+    worst = max(shares, key=lambda p: shares[p] / bound(p))
+    print("11b gradient leaves, distance from the float64 arm as a share of the leaf's largest "
+          "entry: the fp32 arm / again / on deterministic algorithms (the witness) / the "
+          "fp32 step without the arm; the witness's distance from the arm; bound:\n"
+          + "\n".join(f"  {p}: {shares[p]:.3e} / {again[p]:.3e} / {wit[p]:.3e} / "
+                      f"{off_shares[p]:.3e}; {wit_arm[p]:.3e}; {bound(p):g}"
+                      for p in sorted(shares, key=shares.get, reverse=True)))
+    by_group = {name: max(v for p, v in shares.items() if group(p) == name)
+                for name in bounds}
+    loss_rel = abs(l32 - l64) / abs(l64)
+    live = abs(plain - l32) / abs(l64)
+    print(f"11b tpu_products step (B={BATCH}, oracle config, wide inducing grids): loss "
+          f"fp32 arm {l32!r}, float64 arm {l64!r} (rel {loss_rel:.3e}, tol "
+          f"{TPU_LOSS_RTOL:.0e}); fp32 without the arm {plain!r} (rel {live:.3e} from the "
+          f"arm, {live / max(loss_rel, 1e-300):.1f}x the arm's float64 gap); gradients "
+          f"worst by group {by_group} (bounds {bounds}); the witness moves the arm's "
+          f"gradient by up to {max(wit_arm.values()):.3e} of a leaf; the step again moves "
+          f"it by up to {order['arm']:.3e} in the arm, {order['no_arm']:.3e} without; "
+          "without the arm "
+          f"{ {p: round(off_shares[p] / bound(p), 2) for p in TPU_LIVE_LEAVES} } x the "
+          f"bound on the live leaves; sites fp32 {sites32}, float64 {sites64}, off "
+          f"{sites_off}; conv5 launches {launches}; the fp32 step {1e3 * step_s:.1f} ms "
+          "(its first, cuDNN's search included)")
+    if sites32 != TPU_ORACLE_SITES or sites64 != TPU_ORACLE_SITES:
+        fail(f"the arm's product sites {sites32} / {sites64} are not {TPU_ORACLE_SITES}")
+    if any(sites_off.values()):
+        fail(f"the step without the arm went through the rounded products: {sites_off}")
+    if launches != 1:
+        fail(f"conv5 launched {launches} times in the arm's fp32 step")
+    if not loss_rel <= TPU_LOSS_RTOL:
+        fail("the arm's fp32 loss disagrees with its float64 loss")
+    for what, got in (("", shares), (" again", again), (" on deterministic algorithms", wit)):
+        over = sorted(p for p in got if not got[p] <= bound(p))
+        if over:
+            fail(f"the arm's fp32 gradient{what} disagrees with its float64 gradient on {over}")
+    if not live >= TPU_LIVE_RATIO * loss_rel:
+        fail("the arm's loss is not told apart from the unrounded fp32 loss")
+    dead = [p for p in TPU_LIVE_LEAVES if not off_shares[p] > bound(p)]
+    if dead:
+        fail(f"the gradient check cannot tell the arm from the unrounded step on {dead}")
+    return {"loss_fp32": l32, "loss_float64": l64, "loss_rel": loss_rel,
+            "loss_no_arm": plain, "no_arm_rel": live, "grad_share_worst": shares[worst],
+            "grad_share_worst_leaf": worst, "grad_share_by_group": by_group,
+            "grad_bounds": bounds,
+            "grad_shares": shares, "again_grad_shares": again,
+            "witness_grad_shares": wit, "witness_from_arm": wit_arm,
+            "again_from_first": order,
+            "no_arm_grad_shares": off_shares, "sites": sites32,
+            "conv5_launches": launches}
+
+
+def drive_tpu_oracle(conv5_mod, work: Path):
+    """11c: the oracle at phase 7's defaults in the arm (--tpu_products) for
+    ORACLE_SCAN_EPOCHS epochs with --no_gate, eager and --epoch_scan, as
+    phase 7b does: every loss finite, skips and fallbacks printed, conv5
+    once a train and recon forward (launches plus replays).  Returns (conv5
+    runs by path, numbers)."""
+    steps = -(-ORACLE_VOLS // BATCH)
+    want = ORACLE_SCAN_EPOCHS * steps + steps
+    by_path, out = {}, {}
+    for scan in (False, True):
+        name = "tpu_oracle_replay" if scan else "tpu_oracle_eager"
+        argv = ["--work_dir", str(work / name), "--epochs", str(ORACLE_SCAN_EPOCHS),
+                "--no_gate", "--tpu_products"] + (["--epoch_scan"] if scan else [])
+        reset_conv5(conv5_mod)
+        rc, result, t = run_oracle(argv, work / f"{name}.log")
+        torch.cuda.synchronize()
+        runs = conv5_mod.conv5.launches + sum(t.replays.values())
+        secs = [t.epoch_seconds[e] for e in sorted(t.epoch_seconds)]
+        losses = [t.loss["train"][e] for e in range(ORACLE_SCAN_EPOCHS)]
+        steady = statistics.median(secs[1:])
+        out[name] = dict(first_epoch_s=secs[0], steady_epoch_s=steady,
+                         train_seconds=result["train_seconds"], conv5_runs=runs,
+                         captures=t.captures, replays=t.replays, final_loss=losses[-1],
+                         skips=result["nonfinite_skips"],
+                         fallbacks=result["mvn_fallbacks"],
+                         contrast=result["contrast_ratio"],
+                         inside=result["task_map_mean_inside"])
+        print(f"11c oracle in the arm, {ORACLE_SCAN_EPOCHS} epochs, {name}: exit {rc}, "
+              f"tpu_products {result['tpu_products']}, first epoch {secs[0]:.3f} s, steady "
+              f"{steady:.4f} s/epoch, training {result['train_seconds']} s; skips "
+              f"{result['nonfinite_skips']}, gain-Cholesky fallbacks "
+              f"{result['mvn_fallbacks']}; captures {t.captures}, replays {t.replays}; "
+              f"conv5 runs {runs} (want {want}); last loss {losses[-1]}")
+        if rc != 0 or result["tpu_products"] is not True or not t.config.tpu_products:
+            fail(f"the {name} oracle run failed or did not run in the arm")
+        if not np.isfinite(losses).all() or runs != want:
+            fail(f"the {name} oracle run has a non-finite loss or did not run conv5 once "
+                 "a forward")
+        if scan and sum(t.replays.values()) != ORACLE_SCAN_EPOCHS * steps - len(t.captures):
+            fail("the arm's epoch_scan run did not replay every step after a capture")
+        by_path[name] = runs
+    return by_path, out
+
+
+ONE_PASS_CHECKED = ("main", "oracle_tail", "mni", "thin", "hw30", "odd-batch")
+
+
+def drive_phase11(conv5_mod, lib, lap):
+    """Phase 11: the TPU's product arithmetic.  Returns (conv5 runs by path,
+    the numbers)."""
+    out, by_path = {}, {}
+    out["conv5_one_pass"] = check_conv5_one_pass(conv5_mod, lib, ONE_PASS_CHECKED)
+    lap("11a_conv5_one_pass")
+    free_card()
+    out["step"] = drive_tpu_step(conv5_mod)
+    by_path["tpu_step"] = out["step"]["conv5_launches"]
+    lap("11b_tpu_step")
+    free_card()
+    work = Path(tempfile.mkdtemp(prefix="vaegam_tpu_oracle_"))
+    try:
+        paths, out["oracle"] = drive_tpu_oracle(conv5_mod, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    by_path.update(paths)
+    lap("11c_tpu_oracle")
+    return by_path, out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", default=None,
@@ -2601,19 +2993,32 @@ def main(argv=None) -> int:
     # 10. conv_pack on the card (10a), then the study tools (10b-10f)
     with Conv5Shapes(conv5_mod) as p10_shapes:
         p10_launches, phase10, p10_rank_shapes = drive_phase10(conv5_mod, lap)
+
+    # 11. the TPU's product arithmetic: conv5's one-pass path (11a), a
+    # full-width step against float64 (11b), 30 oracle epochs (11c)
+    with Conv5Shapes(conv5_mod) as p11_shapes:
+        p11_launches, phase11 = drive_phase11(conv5_mod, lib, lap)
     phase_s["total"] = time.perf_counter() - t_start
     print(json.dumps({"phase_seconds": phase_s, "card": smi}))
-    seen = shapes.seen | dp_shapes.seen | rank_shapes | p10_shapes.seen | p10_rank_shapes
+    seen = (shapes.seen | dp_shapes.seen | rank_shapes | p10_shapes.seen | p10_rank_shapes
+            | p11_shapes.seen)
     unchecked = seen - set(CONV5_SHAPES.values())
     print(f"conv5 launch shapes on the main path and the ranks: {sorted(seen)}; all "
           f"checked against the plain version in phase 3: {not unchecked}")
     if unchecked:
         fail(f"conv5 launched at shapes phase 3 did not check: {sorted(unchecked)}")
+    unchecked = p11_shapes.one_pass - {CONV5_SHAPES[n] for n in ONE_PASS_CHECKED}
+    print(f"conv5's one-pass launch shapes: {sorted(p11_shapes.one_pass)}; all checked "
+          f"in 11a: {not unchecked}")
+    if unchecked:
+        fail(f"conv5's one-pass path launched at shapes 11a did not check: {sorted(unchecked)}")
     if oracle_failed:
         fail(oracle_failed)
 
-    # 11. numbers
+    # 12. numbers
     print(json.dumps({"phase10": phase10}))
+    print(json.dumps({"tpu_products": phase11}))
+    one = phase11["conv5_one_pass"]
     kernel = {
         "name": "conv5", "route": "cuda",
         "source": "vaegam_tpu_torch/ops/csrc/conv5.cu",
@@ -2621,7 +3026,8 @@ def main(argv=None) -> int:
         "launches": cli_launches["cli_fp32"],
         "launches_by_path": dict(train_step=step_launches, float64_step=f64_launches,
                                  **scan_launches, **cli_launches, oracle=oracle_launches,
-                                 **oracle_scan_launches, **dp_launches, **p10_launches),
+                                 **oracle_scan_launches, **dp_launches, **p10_launches,
+                                 **p11_launches),
         "max_abs_err": err,
         "ms": timing["ms"], "plain_ms": timing["plain_ms"], "bound_ms": timing["bound_ms"],
         "bound_by": timing["bound_by"], "library_ms": timing["library_ms"],
@@ -2630,6 +3036,10 @@ def main(argv=None) -> int:
         "library_host_ms": timing["library_host_ms"],
         "mni_ms": timing["mni_ms"], "mni_library_ms": timing["mni_library_ms"],
         "mni_bound_ms": timing["mni_bound_ms"], "mni_bound_tc_ms": timing["mni_bound_tc_ms"],
+        "one_pass": {k: one[k] for k in (
+            "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "split_ms", "max_abs_err",
+            "mni_ms", "mni_library_ms", "mni_bound_ms", "mni_split_ms", "hmma_one_pass",
+            "hmma_split")},
     }
     print(json.dumps({"kernels": [kernel]}))
     print(json.dumps({"step_ms_median": step_ms, "vols_per_s": BATCH * 1e3 / step_ms,
@@ -2644,7 +3054,7 @@ def main(argv=None) -> int:
     print(json.dumps({"beta_maps": betas}))
     print(json.dumps({"data_parallel": dp}))
     print(smi)
-    # 12. the last line
+    # 13. the last line
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

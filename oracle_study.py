@@ -13,7 +13,13 @@ averaged maps and recovery check, at every default) in these arms:
         products, float32 sums) once the Trainer has set up the card: the
         reduced-precision float32 products an accelerator gives a dot or
         conv at XLA's DEFAULT precision, which the JAX package never
-        raises (conv5's kernel stays full float32).
+        raises (conv5's kernel stays full float32);
+  tpu   the fp32 arm in the TPU's own product arithmetic, the one JAX's
+        records were made in (``VAEGAMConfig(tpu_products=True)``, the
+        ``ops.products`` module): both operands of every product of the
+        step (convs, FC layers, the GP's and the composition's
+        contractions, conv5's kernel on its one-pass path) rounded to
+        bfloat16, the sums in float32, forward and backward.
 
 Both arms see the same batches: the host loader and the device cache take
 the same epoch-addressed shuffle, ``default_rng((seed, epoch))``; the
@@ -27,6 +33,7 @@ runs at one seed can be held against each other bit for bit.
 
     python oracle_study.py --work_dir W --out OUT --arms fp32 f64 \\
         --seeds 1 2 3 4 5 6 7 8 --epochs 900 --procs 8
+    python oracle_study.py --work_dir W --out OUT --arms tpu --seeds 1 ... 8
 
 Prints one JSON line a run and a summary line; writes each run's JSON
 (with its per-epoch trace) under ``--out``.
@@ -103,8 +110,8 @@ def run_one(arm: str, seed: int, epochs: int, csv: str, run_dir: str,
         torch.backends.cudnn.deterministic = True
     kw = dict(glm_reg_scale=1.0, neural_covariates=False, img_shape=img_shape,
               qu_s_cholesky=True, fused_norm_stats=True)
-    if arm in ("fp32", "tf32"):
-        config = VAEGAMConfig(**kw)
+    if arm in ("fp32", "tf32", "tpu"):
+        config = VAEGAMConfig(tpu_products=arm == "tpu", **kw)
         loaders = setup_device_loaders(batch_size=32, train_csv=csv, test_csv=csv,
                                        seed=seed, device=device)
     elif arm == "f64":

@@ -257,7 +257,9 @@ def test_beta_maps_missing_feat_dir_rejected(tmp_path):
 
 def test_parsers_match_jax():
     """add_signal and preproc take the JAX parsers' options exactly;
-    beta_maps and the oracle add only --device."""
+    beta_maps adds only --device, the oracle only --device and
+    --tpu_products / --no-tpu_products (the TPU's product arithmetic,
+    ``VAEGAMConfig.tpu_products``; off by default)."""
     def options(parser):
         return {a.dest: (tuple(a.option_strings), a.default, a.choices, a.nargs, a.const)
                 for a in parser._actions if a.option_strings and a.dest != "help"}
@@ -268,7 +270,7 @@ def test_parsers_match_jax():
             (options(preproc.build_parser()), options(jax_preproc.build_parser()), set()),
             (options(beta_maps.build_parser()), options(jax_beta_maps.build_parser()),
              {"device"}),
-            (options(ce.build_parser()), jax_tool, {"device"})):
+            (options(ce.build_parser()), jax_tool, {"device", "tpu_products"})):
         assert set(mine) - set(theirs) == extra
         for dest, spec in theirs.items():
             assert mine[dest] == spec, dest

@@ -25,6 +25,7 @@ JAX's weights (``params_from_jax``) and JAX's noise (``jax_noise``).
     ``dryrun_multichip(2)``.
 """
 
+import dataclasses
 import os
 
 import numpy as np
@@ -177,6 +178,24 @@ def test_two_rank_step_matches_jax_mesh_fp32(ranks, model):
         _assert_leaves_close(outs[0]["grads"], want, 2e-4, f"grad vs {what}")
     _assert_leaves_close([v / 0.1 for _, v in tree_items(outs[1]["mu"])], single, 2e-4,
                          "first moment / 0.1")
+
+
+def test_two_rank_step_in_the_tpu_arm_matches_one_process(ranks, model):
+    """``tpu_products`` under data parallel: the 2 ranks' float64 step (loss
+    and summed gradients, the HRF and the gain sample over the global batch)
+    against the single-process step in the arm, at the float64 bounds (loss
+    rtol 1e-9, gradients 1e-7 of each leaf's largest entry); the step
+    without the arm differs."""
+    inp = _inputs(model, 8)
+    inp["config"] = dataclasses.replace(inp["config"], tpu_products=True)
+    loss, _, single = _single(inp, torch.float64)
+    outs = ranks.run("step", dtype="float64", trainer_step=False, **inp)
+    assert outs[0]["loss"] == outs[1]["loss"]
+    _ranks_agree(outs, "grads")
+    np.testing.assert_allclose(outs[0]["loss"], loss, rtol=1e-9)
+    _assert_leaves_close(outs[0]["grads"], single, 1e-7, "grad vs single")
+    off, _, _ = _single(dict(inp, config=model[1]), torch.float64)
+    assert abs(off - loss) > 1e-6 * abs(loss)
 
 
 # ---------------------------------------------------------------------------

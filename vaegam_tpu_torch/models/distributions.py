@@ -18,6 +18,8 @@ import math
 
 import torch
 
+from ..ops import products
+
 _LOG_2PI = math.log(2.0 * math.pi)
 
 
@@ -75,7 +77,7 @@ def lowrank_mvn_kl_to_std_normal(mu, u, d):
 # Dense multivariate normal (the batch-coupled gain sample)
 # ---------------------------------------------------------------------------
 
-def mvn_sample_safe(eps, mean, cov, jitters=(1e-4, 1e-3, 1e-2)):
+def mvn_sample_safe(eps, mean, cov, jitters=(1e-4, 1e-3, 1e-2), tpu_products=False):
     """Sample N(mean, cov) as mean + L eps, with escalating-jitter fallback.
 
     eps: (..., n) standard-normal noise; mean: (..., n); cov: (..., n, n).
@@ -83,6 +85,7 @@ def mvn_sample_safe(eps, mean, cov, jitters=(1e-4, 1e-3, 1e-2)):
     retry with progressively larger diagonal jitter.  Returns
     (sample, fallback_count) where fallback_count (int32 scalar tensor) is
     the number of matrices whose as-given factorization failed.
+    ``tpu_products`` forms L eps in the TPU's arithmetic.
     """
     cov = 0.5 * (cov + cov.mT)
     eye = torch.eye(cov.shape[-1], dtype=cov.dtype, device=cov.device)
@@ -92,7 +95,7 @@ def mvn_sample_safe(eps, mean, cov, jitters=(1e-4, 1e-3, 1e-2)):
         bad = torch.isnan(chol).any(dim=-1, keepdim=True).any(dim=-2, keepdim=True)
         cand = cholesky_nan(cov + j * eye)
         chol = torch.where(bad, cand, chol)
-    out = mean + torch.einsum("...ij,...j->...i", chol, eps)
+    out = mean + products.ops(tpu_products).einsum("...ij,...j->...i", chol, eps)
     return out, first_bad.sum(dtype=torch.int32)
 
 

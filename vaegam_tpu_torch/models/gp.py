@@ -11,6 +11,10 @@ The Kuu solve is an unguarded LU solve, as in the JAX code: ``solve_ex``
 without its error check, so a singular Kuu gives non-finite values (which
 the Trainer's skip rule then handles) where ``torch.linalg.solve`` would
 raise, and no step reads the factorization's status on the host.
+
+``tpu_products`` computes the products around the solve in the TPU's
+arithmetic (``ops.products``), as the same pairwise contractions as JAX's;
+the solve stays in full precision.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ import math
 
 import torch
 
+from ..ops import products
 from .distributions import mvn_kl
 
 GP_PRIOR_VAR = 10.0  # prior N(0, 10 I) over inducing outputs
@@ -31,7 +36,7 @@ def rbf_gram(x1, x2, k_var, ls):
     return k_var[:, None, None] * torch.exp(-torch.square(scaled))
 
 
-def evaluate_posterior(xu, k_var, ls, qu_m, qu_S, xq):
+def evaluate_posterior(xu, k_var, ls, qu_m, qu_S, xq, tpu_products: bool = False):
     """Posterior q(f) over query points, for G stacked GPs.
 
     Args:
@@ -46,23 +51,30 @@ def evaluate_posterior(xu, k_var, ls, qu_m, qu_S, xq):
     kuu = rbf_gram(xu, xu, k_var, ls)          # (G, P, P)
     a_t = torch.linalg.solve_ex(kuu, kuq).result   # (G, P, B)
     a = a_t.mT
-    f_bar = (a @ qu_m[:, :, None])[..., 0]
-    sigma = kqq + a @ (qu_S - kuu) @ a_t
+    mm = products.ops(tpu_products).matmul
+    f_bar = mm(a, qu_m[:, :, None])[..., 0]
+    sigma = kqq + mm(mm(a, qu_S - kuu), a_t)
     return f_bar, sigma
 
 
-def evaluate_posterior_diag(xu, k_var, ls, qu_m, qu_S, xq):
+def evaluate_posterior_diag(xu, k_var, ls, qu_m, qu_S, xq, tpu_products: bool = False):
     """Posterior mean and MARGINAL variance over xq, without the (B, B) Sigma.
 
     The diagonal of :func:`evaluate_posterior`:
       diag(Sigma) = k_var + sum_pq a_t[p,b] (qu_S - Kuu)[p,q] a_t[q,b]
     (the RBF at zero distance is k_var).  O(B P) memory, so plot_GPs can
     evaluate a study's every CSV row.  Shapes as :func:`evaluate_posterior`;
-    returns f_bar (G, B) and var (G, B).
+    returns f_bar (G, B) and var (G, B).  ``tpu_products`` contracts the
+    three-operand sum as JAX's einsum path does, (qu_S - Kuu) with a_t
+    first, then a_t with that, each product in the TPU's arithmetic.
     """
     kuq = rbf_gram(xu, xq, k_var, ls)          # (G, P, B)
     kuu = rbf_gram(xu, xu, k_var, ls)          # (G, P, P)
     a_t = torch.linalg.solve_ex(kuu, kuq).result   # (G, P, B)
+    if tpu_products:
+        f_bar = products.matmul(a_t.mT, qu_m[:, :, None])[..., 0]
+        m_a = products.einsum("gpq,gpb->gqb", qu_S - kuu, a_t)
+        return f_bar, k_var[:, None] + products.einsum("gqb,gqb->gb", a_t, m_a)
     f_bar = (a_t.mT @ qu_m[:, :, None])[..., 0]
     var = k_var[:, None] + torch.einsum("gpb,gpq,gqb->gb", a_t, qu_S - kuu, a_t)
     return f_bar, var

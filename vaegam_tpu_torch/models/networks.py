@@ -28,8 +28,8 @@ import math
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
+from ..ops import products
 from ..ops.conv5 import conv5
 from ..ops.packed_conv import packed_conv3d
 from ..parallel.mesh import all_reduce_sum
@@ -188,11 +188,12 @@ def batch_stat_norm(x, p, groups: int = 1, stat_dtype=None, mesh=None,
     return out.to(x.dtype).reshape(x.shape)
 
 
-def _linear(x, p):
-    return F.linear(x, p["w"], p["b"])
+def _linear(x, p, op=products.TORCH):
+    return op.linear(x, p["w"], p["b"])
 
 
-def _conv(x, p, stride, conv_dtype=None, pack=None, pack_padding=((0, 0),) * 3):
+def _conv(x, p, stride, conv_dtype=None, pack=None, pack_padding=((0, 0),) * 3,
+          op=products.TORCH):
     """conv_dtype None: fp32 with the bias fused.  Otherwise x is already in
     conv_dtype (cast once at stack entry, so activations stay in it between
     layers); the weight is cast per call, the fp32 bias add promotes and the
@@ -200,17 +201,19 @@ def _conv(x, p, stride, conv_dtype=None, pack=None, pack_padding=((0, 0),) * 3):
 
     pack=(s_h, s_w) lane-packs a stride-1 conv (``ops.packed_conv``, the
     same math) after padding by ``pack_padding``; the weight is cast first
-    and packed after, as in JAX."""
+    and packed after, as in JAX.  op is the set of operations
+    (``products.ops``: torch's, or the TPU's arithmetic)."""
     w = p["w"] if conv_dtype is None else p["w"].to(conv_dtype)
     bias = p["b"] if conv_dtype is None else None
     if pack is not None and stride == 1:
-        y = packed_conv3d(x, w, pack_padding, pack, bias=bias)
+        y = packed_conv3d(x, w, pack_padding, pack, bias=bias, op=op)
     else:
-        y = F.conv3d(x, w, bias, stride=stride)
+        y = op.conv3d(x, w, bias, stride=stride)
     return y if conv_dtype is None else (y + p["b"].reshape(-1, 1, 1, 1)).to(x.dtype)
 
 
-def _conv_t(x, p, stride=1, padding=0, output_padding=0, conv_dtype=None, pack=None):
+def _conv_t(x, p, stride=1, padding=0, output_padding=0, conv_dtype=None, pack=None,
+            op=products.TORCH):
     """Transposed conv with the precision rule of :func:`_conv`.
 
     pack=(s_h, s_w) lane-packs a stride-1 layer as the conv it equals: the
@@ -220,16 +223,17 @@ def _conv_t(x, p, stride=1, padding=0, output_padding=0, conv_dtype=None, pack=N
     if pack is not None and stride == 1:
         w = p["w"].flip(2, 3, 4).transpose(0, 1)
         pads = tuple((k - 1 - padding,) * 2 for k in w.shape[2:])
-        return _conv(x, {"w": w, "b": p["b"]}, 1, conv_dtype, pack, pads)
+        return _conv(x, {"w": w, "b": p["b"]}, 1, conv_dtype, pack, pads, op)
     kw = dict(stride=stride, padding=padding, output_padding=output_padding)
     if conv_dtype is None:
-        return F.conv_transpose3d(x, p["w"], p["b"], **kw)
-    y = F.conv_transpose3d(x, p["w"].to(conv_dtype), None, **kw)
+        return op.conv_transpose3d(x, p["w"], p["b"], **kw)
+    y = op.conv_transpose3d(x, p["w"].to(conv_dtype), None, **kw)
     return (y + p["b"].reshape(-1, 1, 1, 1)).to(x.dtype)
 
 
 def encode(params, x, conv5_kernel: bool = True, conv_dtype=None,
-           stat_dtype=None, mesh=None, global_rows=None, conv_pack=None):
+           stat_dtype=None, mesh=None, global_rows=None, conv_pack=None,
+           tpu_products: bool = False):
     """x: (B, D, H, W) -> (mu, u, d), each (B, num_latents).
 
     conv_dtype (e.g. torch.bfloat16) selects the conv stack's precision;
@@ -243,35 +247,42 @@ def encode(params, x, conv5_kernel: bool = True, conv_dtype=None,
     package's Pallas conv5 is fp32-only.  conv_pack=(s_h, s_w) lane-packs
     the stride-1 convs (conv1, conv3, and conv5 where it does not take the
     kernel, which keeps precedence as JAX's ``pallas_conv5`` does).
+    tpu_products computes every conv and FC product in the TPU's arithmetic
+    (``ops.products``; conv5's kernel takes its one-pass bfloat16 path).
     """
-    cd, cp = conv_dtype, conv_pack
+    cd, cp, op = conv_dtype, conv_pack, products.ops(tpu_products)
     h = x[:, None]  # NCDHW with C=1
     if cd is not None:
         h = h.to(cd)  # one downcast; activations stay cd across the stack
     def norm(h, p):
         return batch_stat_norm(h, p, 1, stat_dtype, mesh, global_rows)
 
-    h = F.relu(_conv(norm(h, params["bn1"]), params["conv1"], 1, cd, cp))
-    h = F.relu(_conv(h, params["conv2"], 2, cd))
-    h = F.relu(_conv(norm(h, params["bn3"]), params["conv3"], 1, cd, cp))
-    h = F.relu(_conv(h, params["conv4"], 2, cd))
+    h = op.relu(_conv(norm(h, params["bn1"]), params["conv1"], 1, cd, cp, op=op))
+    h = op.relu(_conv(h, params["conv2"], 2, cd, op=op))
+    h = op.relu(_conv(norm(h, params["bn3"]), params["conv3"], 1, cd, cp, op=op))
+    h = op.relu(_conv(h, params["conv4"], 2, cd, op=op))
     h5 = norm(h, params["bn5"])
     if conv5_kernel and cd is None:
-        h = F.relu(conv5(h5, params["conv5"]["w"], params["conv5"]["b"]))
+        h = op.relu(conv5(h5, params["conv5"]["w"], params["conv5"]["b"],
+                          one_pass=tpu_products))
     else:
-        h = F.relu(_conv(h5, params["conv5"], 1, cd, cp))
+        h = op.relu(_conv(h5, params["conv5"], 1, cd, cp, op=op))
     h = h.reshape(h.shape[0], -1).to(x.dtype)  # channel-major; FC stack in fp32
-    h = F.relu(_linear(h, params["fc1"]))
-    h = F.relu(_linear(h, params["fc2"]))
-    mu = _linear(F.relu(_linear(h, params["fc31"])), params["fc41"])
-    u = _linear(F.relu(_linear(h, params["fc32"])), params["fc42"])
-    d = torch.exp(_linear(F.relu(_linear(h, params["fc33"])), params["fc43"]))
+
+    def fc(h, name):
+        return _linear(h, params[name], op)
+
+    h = op.relu(fc(h, "fc1"))
+    h = op.relu(fc(h, "fc2"))
+    mu = fc(op.relu(fc(h, "fc31")), "fc41")
+    u = fc(op.relu(fc(h, "fc32")), "fc42")
+    d = torch.exp(fc(op.relu(fc(h, "fc33")), "fc43"))
     return mu, u, d
 
 
 def decode(params, z, img_shape=REFERENCE_IMG_SHAPE, stat_groups: int = 1,
            conv_dtype=None, fp32_final: bool = False, stat_dtype=None,
-           mesh=None, global_rows=None, conv_pack=None):
+           mesh=None, global_rows=None, conv_pack=None, tpu_products: bool = False):
     """z: (B*, z_dim) -> sigmoid volume flattened to (B*, prod(img_shape)).
 
     stat_groups: contiguous batch groups for the batch-stat norms.
@@ -283,30 +294,33 @@ def decode(params, z, img_shape=REFERENCE_IMG_SHAPE, stat_groups: int = 1,
     rows of each group and ``global_rows`` counts the global decode's rows
     (see :func:`batch_stat_norm`).  conv_pack=(s_h, s_w) lane-packs the
     stride-1 layers convt1, convt3 and convt5 (convt5 under fp32_final too).
+    tpu_products: every product in the TPU's arithmetic (``ops.products``).
     """
-    cd, sd, cp = conv_dtype, stat_dtype, conv_pack
+    cd, sd, cp, op = conv_dtype, stat_dtype, conv_pack, products.ops(tpu_products)
 
     def norm(h, p):
         return batch_stat_norm(h, p, stat_groups, sd, mesh, global_rows)
 
     seed, crop = decoder_seed_shape(img_shape)
     c = params["convt1"]["w"].shape[0]
-    h = F.relu(_linear(z, params["fc5"]))
-    h = F.relu(_linear(h, params["fc6"]))
-    h = F.relu(_linear(h, params["fc7"]))
-    h = F.relu(_linear(h, params["fc8"]))
+    h = op.relu(_linear(z, params["fc5"], op))
+    h = op.relu(_linear(h, params["fc6"], op))
+    h = op.relu(_linear(h, params["fc7"], op))
+    h = op.relu(_linear(h, params["fc8"], op))
     h = h.reshape(-1, c, *seed)
     if cd is not None:
         h = h.to(cd)  # one downcast; activations stay cd across the stack
-    h = F.relu(_conv_t(norm(h, params["bnt1"]), params["convt1"], conv_dtype=cd, pack=cp))
-    h = F.relu(_conv_t(h, params["convt2"], 2, (1, 0, 1), (1, 0, 1), conv_dtype=cd))
-    h = F.relu(_conv_t(norm(h, params["bnt3"]), params["convt3"], conv_dtype=cd, pack=cp))
-    h = F.relu(_conv_t(h, params["convt4"], 2, conv_dtype=cd))
+    h = op.relu(_conv_t(norm(h, params["bnt1"]), params["convt1"], conv_dtype=cd, pack=cp,
+                        op=op))
+    h = op.relu(_conv_t(h, params["convt2"], 2, (1, 0, 1), (1, 0, 1), conv_dtype=cd, op=op))
+    h = op.relu(_conv_t(norm(h, params["bnt3"]), params["convt3"], conv_dtype=cd, pack=cp,
+                        op=op))
+    h = op.relu(_conv_t(h, params["convt4"], 2, conv_dtype=cd, op=op))
     h = norm(h, params["bnt5"])
     if fp32_final and cd is not None:
-        h = _conv_t(h.to(z.dtype), params["convt5"], pack=cp)
+        h = _conv_t(h.to(z.dtype), params["convt5"], pack=cp, op=op)
     else:
-        h = _conv_t(h, params["convt5"], conv_dtype=cd, pack=cp)
+        h = _conv_t(h, params["convt5"], conv_dtype=cd, pack=cp, op=op)
     if any(crop):
         h = h[:, :, : h.shape[2] - crop[0], : h.shape[3] - crop[1],
               : h.shape[4] - crop[2]]

@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from .._device import resolve_device
+from ..ops import products
 from ..ops.packed_conv import check_pack
 from ..utils import prng
 from ..utils.signals import hrf
@@ -37,7 +38,8 @@ from .distributions import (
     normal_kl,
     normal_log_prob,
 )
-from ..parallel.mesh import all_reduce_max, all_reduce_total, batch_rows, global_value
+from ..parallel.mesh import (all_reduce_max, all_reduce_total, batch_rows, global_value,
+                             mean_cotangent)
 from .networks import decode, encode, init_decoder, init_encoder
 
 # output map keys, in reference order
@@ -74,6 +76,13 @@ class VAEGAMConfig:
     sigmoid in float32, the rest in float64.  It needs ``conv5_kernel``
     off (the kernel is float32, as JAX's Pallas conv5 is) and host batches
     (the device cache's gather restores float32 only).
+    ``tpu_products`` computes every product that JAX's step computes as a
+    ``dot_general`` or ``conv_general_dilated`` in the arithmetic of the
+    TPU that made the JAX package's records (``ops.products``: both
+    operands rounded to bfloat16, the sums in float32, forward and
+    backward; conv5's kernel takes its one-pass bfloat16 path).  Cholesky,
+    the LU solve and the triangular solves stay in full precision.  Off by
+    default; in float64 it rounds the operands and sums in float64.
     """
 
     nf: int = 8
@@ -95,6 +104,7 @@ class VAEGAMConfig:
     qu_s_cholesky: bool = False
     x64_epsilon: bool = False
     fused_norm_stats: bool = False
+    tpu_products: bool = False
 
     def __post_init__(self):
         if self.dtype not in (torch.float32, torch.float64):
@@ -220,32 +230,42 @@ def gp_transforms(gp_params, config: VAEGAMConfig):
     return kvar, ls
 
 
-def resolve_qu_S(gp_params) -> torch.Tensor:
+def resolve_qu_S(gp_params, tpu_products: bool = False) -> torch.Tensor:
     """The GP posterior covariance stack (6, P, P).
 
     The raw-matrix parameterization returns ``qu_S`` as it is; the Cholesky
     one returns L L^T with L = tril(raw, -1) + diag(exp(diag(raw))), PSD by
     construction.  The key present decides, as in the JAX package, so a
     checkpoint of either parameterization runs under either config.
+    ``tpu_products`` forms L L^T in the TPU's arithmetic.
     """
     if "qu_S" in gp_params:
         return gp_params["qu_S"]
     raw = gp_params["qu_S_raw"]
     chol = torch.tril(raw, -1) + torch.diag_embed(
         torch.exp(torch.diagonal(raw, dim1=-2, dim2=-1)))
-    return torch.einsum("cij,ckj->cik", chol, chol)
+    return products.ops(tpu_products).einsum("cij,ckj->cik", chol, chol)
 
 
-def hrf_convolve(gains: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
+def hrf_convolve(gains: torch.Tensor, kernel: torch.Tensor,
+                 tpu_products: bool = False) -> torch.Tensor:
     """Causal HRF convolution of each row of gains (n, B) over the batch axis.
 
     The first B entries of the full 1-D convolution (the JAX code's
     ``jnp.convolve(g, h, "full")[:B]``): a cross-correlation with the
     flipped kernel after K-1 zeros of left padding.
+
+    ``tpu_products``: in the TPU's arithmetic, as JAX's convolve is a
+    ``conv_general_dilated``, with its operands in JAX's order: the longer
+    one is the conv's input, so a batch shorter than the kernel makes the
+    kernel the input and each row of gains a (flipped) filter.
     """
-    k = kernel.shape[0]
+    k, b = kernel.shape[0], gains.shape[1]
+    if tpu_products and b < k:
+        padded = F.pad(kernel[None, None, :], (b - 1, b - 1))
+        return products.conv1d(padded, gains.flip(-1)[:, None, :])[0, :, :b]
     padded = F.pad(gains[:, None, :], (k - 1, 0))
-    return F.conv1d(padded, kernel.flip(0)[None, None, :])[:, 0, :]
+    return products.ops(tpu_products).conv1d(padded, kernel.flip(0)[None, None, :])[:, 0, :]
 
 
 def d_floor(d: torch.Tensor, mesh=None) -> torch.Tensor:
@@ -317,8 +337,10 @@ def forward(
         noise = draw_noise(generator, b_all, config, x.device)
 
     # --- encoder & latent sample ------------------------------------------
+    tp = config.tpu_products
+    op = products.ops(tp)
     mu, u, d = encode(params["enc"], x, config.conv5_kernel, config.enc_cd,
-                      config.stat_dtype, mesh, b_all, config.conv_pack)
+                      config.stat_dtype, mesh, b_all, config.conv_pack, tp)
     d = d_floor(d, mesh)
     if deterministic:
         z = mu
@@ -336,7 +358,7 @@ def forward(
         stat_groups=1 if config.fused_norm_stats else n_cov + 1,
         conv_dtype=config.dec_cd, fp32_final=config.dec_fp32_final,
         stat_dtype=config.stat_dtype, mesh=mesh, global_rows=(n_cov + 1) * b_all,
-        conv_pack=config.conv_pack,
+        conv_pack=config.conv_pack, tpu_products=tp,
     ).reshape(n_cov + 1, b, config.img_dim)
     # a float64 model decodes float32 maps (JAX's sigmoid cast): the sums
     # below promote them to float64, as jnp's do
@@ -353,9 +375,9 @@ def forward(
 
     # sparse GP for the 6 motion covariates, one batched evaluation
     kvar, ls = gp_transforms(gp_p, config)
-    qu_S = resolve_qu_S(gp_p)
+    qu_S = resolve_qu_S(gp_p, tp)
     f_bar, sigma = gp_mod.evaluate_posterior(
-        consts["xu"], kvar, ls, gp_p["qu_m"], qu_S, xq[MOTION_SLICE]
+        consts["xu"], kvar, ls, gp_p["qu_m"], qu_S, xq[MOTION_SLICE], tp
     )
     m_lo, m_hi = MOTION_SLICE.start, MOTION_SLICE.stop
     beta_mean = torch.cat([beta_mean[:m_lo], beta_mean[m_lo:m_hi] + f_bar,
@@ -371,24 +393,28 @@ def forward(
         mvn_fallbacks = torch.zeros((), dtype=torch.int32, device=x.device)
     else:
         gains, mvn_fallbacks = mvn_sample_safe(
-            eps_beta, beta_mean, beta_cov + 1e-5 * eye_b[None]
+            eps_beta, beta_mean, beta_cov + 1e-5 * eye_b[None], tpu_products=tp
         )
 
     # HRF-convolve neural covariates over the batch axis (reference quirk)
     if config.neural_covariates and config.num_neural > 0:
         nn_ = config.num_neural
-        gains = torch.cat([hrf_convolve(gains[:nn_], consts["hrf"]), gains[nn_:]])
+        gains = torch.cat([hrf_convolve(gains[:nn_], consts["hrf"], tp), gains[nn_:]])
     gains_absmax = torch.max(torch.abs(gains))
+    if tp and mesh is not None:
+        # the TPU arm's backward products upstream round one cotangent,
+        # the global batch's, not this rank's share of it
+        gains = mean_cotangent(gains, mesh)
     gains = gains[:, lo:hi]                                       # this rank's columns
 
     # --- compose reconstruction -------------------------------------------
-    x_rec = base + torch.einsum("cb,cbd->bd", gains, diffs.to(gains.dtype))
+    x_rec = base + op.einsum("cb,cbd->bd", gains, diffs.to(gains.dtype))
 
     # --- GLM regularizer (closed form of sum(cdist(cons, tile(glm, B)))) ---
     if consts["glm_maps"] is not None:
         glm = consts["glm_maps"][:, 1: n_cov + 1].T               # (C, D)
         d2 = torch.sum(diffs * diffs, dim=-1)                     # (C, B)
-        dg = torch.einsum("cbd,cd->cb", diffs.to(glm.dtype), glm)  # (C, B)
+        dg = op.einsum("cbd,cd->cb", diffs.to(glm.dtype), glm)    # (C, B)
         g2 = torch.sum(glm * glm, dim=-1)                         # (C,)
         sq = gains ** 2 * d2 - 2.0 * gains * dg + g2[:, None]
         glm_reg = b_all * torch.sum(torch.sqrt(torch.clamp(sq, min=0.0)))

@@ -12,6 +12,15 @@ Counterpart of ``vaegam_tpu/ops/pallas_conv.py`` (``conv3d_s1_pallas``).
     forward is the kernel on CUDA tensors and the plain version on CPU
     tensors, and whose backward is torch's conv gradients plus a sum, as
     the TPU kernel's backward was XLA's (``_vjp_bwd``).
+
+``one_pass=True`` is the TPU's own arithmetic for the Pallas kernel's
+``jnp.dot``, which carries no precision, so Mosaic's default applies: one
+bfloat16 pass, float32 accumulation.  The kernel's one-pass path rounds
+both operands to bfloat16 (to nearest even) as it stages them and issues
+one tensor-core product per k step; the plain version is the 27-tap sum on
+``products.round_bf16`` operands; the backward rounds the cotangent and
+the saved operands as every other product of the TPU arm does
+(``ops.products``).
 """
 
 from __future__ import annotations
@@ -22,6 +31,9 @@ from typing import NamedTuple
 
 import torch
 from torch.nn.grad import conv3d_input, conv3d_weight
+
+from . import products
+from .products import round_bf16
 
 # Largest dynamic shared memory a Hopper block may opt into (227 KB).
 MAX_SMEM_BYTES = 232448
@@ -107,8 +119,9 @@ def _library(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
     lib.conv5_plan_ints.restype = ctypes.c_int
     if lib.conv5_plan_ints() != len(Conv5Plan._fields):
         raise RuntimeError("conv5.cu's Plan does not match ops/conv5.py's Conv5Plan")
-    lib.conv5_fwd.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p]
-    lib.conv5_fwd.restype = ctypes.c_int
+    for fn in (lib.conv5_fwd, lib.conv5_fwd_bf16):
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -142,8 +155,9 @@ def check_kernel_inputs(x, w, b) -> None:
         raise ValueError("conv5: x, w and b must be CUDA tensors on x's device")
 
 
-def _launch(lib, x, w, b):
-    """Launch `lib`'s kernel on x's device and its current stream; returns y.
+def _launch(lib, x, w, b, one_pass=False):
+    """Launch `lib`'s kernel (its one-pass bfloat16 path if `one_pass`) on
+    x's device and its current stream; returns y.
     The caller has checked the inputs.  The device context is entered only
     when x is not on the current device, and the stream is read as a raw
     pointer (no Stream object), to keep a call's host cost near the
@@ -153,21 +167,23 @@ def _launch(lib, x, w, b):
     y = x.new_empty((bsz, co, d - 2, h - 2, wd - 2))
     args = (x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
             ctypes.addressof(_plan_words((bsz, ci, co, d, h, wd))), vector_staging(x))
+    fwd = lib.conv5_fwd_bf16 if one_pass else lib.conv5_fwd
     dev = x.device.index
     if dev == torch.cuda.current_device():
-        err = lib.conv5_fwd(*args, torch._C._cuda_getCurrentRawStream(dev))
+        err = fwd(*args, torch._C._cuda_getCurrentRawStream(dev))
     else:
         with torch.cuda.device(dev):
-            err = lib.conv5_fwd(*args, torch._C._cuda_getCurrentRawStream(dev))
+            err = fwd(*args, torch._C._cuda_getCurrentRawStream(dev))
     if err != 0:
         raise RuntimeError(f"conv5 kernel launch failed with CUDA error {err}")
     return y
 
 
-def conv5_cuda(x, w, b):
-    """Launch the kernel on the current stream; returns y (B, Co, D-2, H-2, W-2)."""
+def conv5_cuda(x, w, b, one_pass=False):
+    """Launch the kernel on the current stream; returns y (B, Co, D-2, H-2, W-2).
+    ``one_pass``: its bfloat16-operand path (launches counted the same)."""
     check_kernel_inputs(x, w, b)
-    y = _launch(_library(), x, w, b)
+    y = _launch(_library(), x, w, b, one_pass)
     if torch.cuda.is_current_stream_capturing():
         conv5.captured += 1
     else:
@@ -191,28 +207,47 @@ def conv5_plain(x, w, b):
     return acc + b.reshape(1, -1, 1, 1, 1)
 
 
+def conv5_plain_bf16(x, w, b):
+    """Plain version of the one-pass path: the 27-tap sum on bfloat16-rounded
+    operands (exact products, sums in x's dtype)."""
+    return conv5_plain(round_bf16(x), round_bf16(w), b)
+
+
 class _Conv5(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w, b):
+    def forward(ctx, x, w, b, one_pass):
+        ctx.one_pass = one_pass
         ctx.save_for_backward(x, w)
-        return conv5_cuda(x, w, b) if x.is_cuda else conv5_plain(x, w, b)
+        if one_pass:
+            products.SITES["forward"] += 1
+        if x.is_cuda:
+            return conv5_cuda(x, w, b, one_pass)   # the kernel rounds as it stages
+        return (conv5_plain_bf16 if one_pass else conv5_plain)(x, w, b)
 
     @staticmethod
     def backward(ctx, g):
         x, w = ctx.saved_tensors
+        if ctx.one_pass:
+            x, w, g_b, g = round_bf16(x), round_bf16(w), g, round_bf16(g)
+            for kind, need in (("input_grad", 0), ("weight_grad", 1)):
+                products.SITES[kind] += int(ctx.needs_input_grad[need])
+        else:
+            g_b = g
         dx = dw = db = None
         if ctx.needs_input_grad[0]:
             dx = conv3d_input(x.shape, w, g)
         if ctx.needs_input_grad[1]:
             dw = conv3d_weight(x, w.shape, g)
         if ctx.needs_input_grad[2]:
-            db = g.sum(dim=(0, 2, 3, 4))
-        return dx, dw, db
+            db = g_b.sum(dim=(0, 2, 3, 4))
+        return dx, dw, db, None
 
 
-def conv5(x, w, b):
-    """Stride-1 VALID 3x3x3 conv plus bias: x (B,Ci,D,H,W), w (Co,Ci,3,3,3), b (Co,)."""
-    return _Conv5.apply(x, w, b)
+def conv5(x, w, b, one_pass=False):
+    """Stride-1 VALID 3x3x3 conv plus bias: x (B,Ci,D,H,W), w (Co,Ci,3,3,3), b (Co,).
+    ``one_pass``: the TPU's arithmetic (bfloat16 operands, fp32 sums),
+    forward and backward."""
+    return _Conv5.apply(x, w, b, one_pass)
 
 
 conv5.launches = 0  # kernel launches, counted by conv5_cuda

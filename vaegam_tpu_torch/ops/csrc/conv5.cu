@@ -53,7 +53,16 @@
 //     partial sums meet in shared memory; the epilogue adds them in a fixed
 //     order (deterministic) with the bias and stores rows of one co, so
 //     neighbouring lanes write neighbouring x positions.
+//
+// One-pass path (conv5_fwd_bf16, the template's kOnePass): the TPU's own
+// arithmetic for the Pallas kernel's jnp.dot, which carries no precision
+// and so takes Mosaic's default of one bfloat16 pass with float32
+// accumulation.  Each operand is rounded once to bfloat16 (to nearest even)
+// where the split path splits it; a bfloat16 value is exact in TF32, so one
+// m16n8k8 TF32 product per k step forms the exact products, summed in fp32.
+// The lo terms and their two products a step are dropped.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <string.h>
@@ -112,6 +121,11 @@ __device__ __forceinline__ void split_tf32(float v, uint32_t& hi, uint32_t& lo) 
   lo = to_tf32(v - __uint_as_float(hi));
 }
 
+// Round to bfloat16 (to nearest even), kept as fp32 bits: exact in TF32.
+__device__ __forceinline__ uint32_t to_bf16(float v) {
+  return __float_as_uint(__bfloat162float(__float2bfloat16_rn(v)));
+}
+
 // c += a * b for one m16n8k8 tile (a row-major 16x8, b column-major 8x8).
 __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
@@ -166,17 +180,25 @@ struct BSlice {
       }
   }
 
+  // kOnePass: hi holds the bfloat16 rounding and lo is not formed
+  template <bool kOnePass>
   __device__ __forceinline__ void split() {
 #pragma unroll
     for (int s = 0; s < kSliceSteps; ++s)
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
-        split_tf32(raw[s][j].x, hi[s][j][0], lo[s][j][0]);
-        split_tf32(raw[s][j].y, hi[s][j][1], lo[s][j][1]);
+        if constexpr (kOnePass) {
+          hi[s][j][0] = to_bf16(raw[s][j].x);
+          hi[s][j][1] = to_bf16(raw[s][j].y);
+        } else {
+          split_tf32(raw[s][j].x, hi[s][j][0], lo[s][j][0]);
+          split_tf32(raw[s][j].y, hi[s][j][1], lo[s][j][1]);
+        }
       }
   }
 };
 
+template <bool kOnePass>
 __global__ void __launch_bounds__(kThreads, 2)
 conv5_kernel(const float* __restrict__ x, const float* __restrict__ w,
              const float* __restrict__ bias, float* __restrict__ y,
@@ -250,7 +272,7 @@ conv5_kernel(const float* __restrict__ x, const float* __restrict__ w,
     rowoff[r] = yo * p.w + (rr - yo * w_out) - s0;
   }
   PHASE(2)
-  bf.split();
+  bf.split<kOnePass>();
   PHASE(3)
   asm volatile("cp.async.wait_all;\n" ::: "memory");
   __syncthreads();
@@ -258,13 +280,14 @@ conv5_kernel(const float* __restrict__ x, const float* __restrict__ w,
 
   // 2. product, per n16 group: warp w takes K slices w, w+8, ... for every
   //    m16 tile of the block, accumulating hi*hi + hi*lo + lo*hi in fp32
+  //    (the one-pass path: the bfloat16 roundings' one product)
   float* yp = y + ((size_t)b * p.co * d_out + z) * plane + r0;
   for (int ng = 0; ng < p.ngroups; ++ng) {
     float acc[kMaxTiles][2][4] = {};
     for (int q = warp; q < p.nslices; q += kWarps) {
       if (ng > 0 || q != warp) {
         bf.load(w, q, ng, p.co, kdim, g, t);
-        bf.split();
+        bf.split<kOnePass>();
       }
       const int2* kq = reinterpret_cast<const int2*>(koff + q * kSliceSteps * 8) + t;
 #pragma unroll
@@ -276,15 +299,25 @@ conv5_kernel(const float* __restrict__ x, const float* __restrict__ w,
           const int2 kk = kq[s * 4];
           const int k0 = kk.x, k1 = kk.y;
           uint32_t ah[4], al[4];
-          split_tf32(slab[ro0 + k0], ah[0], al[0]);
-          split_tf32(slab[ro1 + k0], ah[1], al[1]);
-          split_tf32(slab[ro0 + k1], ah[2], al[2]);
-          split_tf32(slab[ro1 + k1], ah[3], al[3]);
+          if constexpr (kOnePass) {
+            ah[0] = to_bf16(slab[ro0 + k0]);
+            ah[1] = to_bf16(slab[ro1 + k0]);
+            ah[2] = to_bf16(slab[ro0 + k1]);
+            ah[3] = to_bf16(slab[ro1 + k1]);
 #pragma unroll
-          for (int j = 0; j < 2; ++j) {
-            mma_tf32(acc[m][j], al, bf.hi[s][j][0], bf.hi[s][j][1]);
-            mma_tf32(acc[m][j], ah, bf.lo[s][j][0], bf.lo[s][j][1]);
-            mma_tf32(acc[m][j], ah, bf.hi[s][j][0], bf.hi[s][j][1]);
+            for (int j = 0; j < 2; ++j)
+              mma_tf32(acc[m][j], ah, bf.hi[s][j][0], bf.hi[s][j][1]);
+          } else {
+            split_tf32(slab[ro0 + k0], ah[0], al[0]);
+            split_tf32(slab[ro1 + k0], ah[1], al[1]);
+            split_tf32(slab[ro0 + k1], ah[2], al[2]);
+            split_tf32(slab[ro1 + k1], ah[3], al[3]);
+#pragma unroll
+            for (int j = 0; j < 2; ++j) {
+              mma_tf32(acc[m][j], al, bf.hi[s][j][0], bf.hi[s][j][1]);
+              mma_tf32(acc[m][j], ah, bf.lo[s][j][0], bf.lo[s][j][1]);
+              mma_tf32(acc[m][j], ah, bf.hi[s][j][0], bf.hi[s][j][1]);
+            }
           }
         }
       }
@@ -327,10 +360,31 @@ conv5_kernel(const float* __restrict__ x, const float* __restrict__ w,
   PHASE_NS(8)
 }
 
-// Largest dynamic shared memory the kernel has opted into so far, per
-// device, so that the attributes are set only when a launch needs more.
+// Largest dynamic shared memory each path of the kernel has opted into so
+// far, per device, so that the attributes are set only when a launch needs
+// more.
 constexpr int kMaxDevices = 64;
-int g_smem_opted[kMaxDevices] = {0};
+int g_smem_opted[2][kMaxDevices] = {};
+
+template <bool kOnePass>
+int launch(const float* x, const float* w, const float* bias, float* y,
+           const int* plan, int vec, void* stream) {
+  Plan p;
+  memcpy(&p, plan, sizeof(Plan));
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  int* opted = g_smem_opted[kOnePass ? 1 : 0];
+  if (dev >= kMaxDevices || p.smem > opted[dev]) {
+    err = cudaFuncSetAttribute(
+        conv5_kernel<kOnePass>, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
+    if (err != cudaSuccess) return (int)err;
+    if (dev < kMaxDevices) opted[dev] = p.smem;
+  }
+  conv5_kernel<kOnePass><<<p.blocks, kThreads, p.smem, (cudaStream_t)stream>>>(
+      x, w, bias, y, p, vec);
+  return (int)cudaGetLastError();
+}
 
 }  // namespace
 
@@ -345,20 +399,13 @@ int conv5_plan_ints() { return (int)(sizeof(Plan) / sizeof(int)); }
 // checked shapes, pointers and the shared-memory size.
 int conv5_fwd(const float* x, const float* w, const float* bias, float* y,
               const int* plan, int vec, void* stream) {
-  Plan p;
-  memcpy(&p, plan, sizeof(Plan));
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev >= kMaxDevices || p.smem > g_smem_opted[dev]) {
-    err = cudaFuncSetAttribute(
-        conv5_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
-    if (err != cudaSuccess) return (int)err;
-    if (dev < kMaxDevices) g_smem_opted[dev] = p.smem;
-  }
-  conv5_kernel<<<p.blocks, kThreads, p.smem, (cudaStream_t)stream>>>(
-      x, w, bias, y, p, vec);
-  return (int)cudaGetLastError();
+  return launch<false>(x, w, bias, y, plan, vec, stream);
+}
+
+// The one-pass path (bfloat16 operands, fp32 sums); arguments as conv5_fwd.
+int conv5_fwd_bf16(const float* x, const float* w, const float* bias, float* y,
+                   const int* plan, int vec, void* stream) {
+  return launch<true>(x, w, bias, y, plan, vec, stream);
 }
 
 #ifdef CONV5_PHASE_CLOCKS

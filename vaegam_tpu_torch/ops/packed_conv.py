@@ -32,6 +32,8 @@ from typing import Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from . import products
+
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
@@ -67,10 +69,14 @@ def packed_conv3d(
     padding: Sequence[Tuple[int, int]] = ((0, 0), (0, 0), (0, 0)),
     pack: Tuple[int, int] = (4, 4),
     bias: torch.Tensor | None = None,
+    op=products.TORCH,
 ) -> torch.Tensor:
     """Stride-1 3D conv, ``F.conv3d(x, w, bias)`` after padding each spatial
     axis by ``padding`` (lo, hi), with H and W lane-packed by ``pack``;
-    ``bias`` (O,) is added inside the packed conv.
+    ``bias`` (O,) is added inside the packed conv.  ``op`` (``products.ops``)
+    gives the conv: torch's, or the TPU's arithmetic, where the packing only
+    moves values and inserts zeros, so rounding the packed operands rounds
+    the layer's own.
     """
     s_h, s_w = pack
     _, _, kd, kh, kw = w.shape
@@ -92,7 +98,7 @@ def packed_conv3d(
     w_packed = pack_weights(w, s_h, s_w)
     if bias is not None:
         bias = bias[:, None].expand(-1, s_h * s_w).reshape(-1)  # (o, sh, sw)
-    y = F.conv3d(xb, w_packed, bias, padding=(lo_d if lo_d == hi_d else 0, 0, 0))
+    y = op.conv3d(xb, w_packed, bias, padding=(lo_d if lo_d == hi_d else 0, 0, 0))
     o, d_out = w.shape[0], y.shape[2]
     y = y.reshape(b, o, s_h, s_w, d_out, nb_h, nb_w).permute(0, 1, 4, 5, 2, 6, 3)
     y = y.reshape(b, o, d_out, nb_h * s_h, nb_w * s_w)

@@ -44,8 +44,9 @@ def plot_GPs(trainer, csv_file: str = "", save_dir: str = ""):
         kvar, ls = gp_transforms(gp_p, trainer.config)
         xq = torch.as_tensor(all_covariates.T, dtype=gp_p["qu_m"].dtype,
                              device=trainer.device)
+        tp = trainer.config.tpu_products
         f_bar, var = evaluate_posterior_diag(
-            trainer.consts["xu"], kvar, ls, gp_p["qu_m"], resolve_qu_S(gp_p), xq)
+            trainer.consts["xu"], kvar, ls, gp_p["qu_m"], resolve_qu_S(gp_p, tp), xq, tp)
     f_bar, var = f_bar.cpu().numpy(), var.cpu().numpy()
     xq = xq.cpu().numpy()
     sa = gp_p["sa"].detach().cpu().numpy()

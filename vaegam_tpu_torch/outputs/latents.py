@@ -89,7 +89,8 @@ def project_latent(trainer, loaders_dict, save_dir, title=None, split=98):
         for sample in loaders_dict["UnShuffled_train"]:
             covs, x = trainer._put_batch(sample)
             mu = encode(trainer.params["enc"], x, trainer.config.conv5_kernel,
-                        mesh=mesh, global_rows=len(covs))[0]
+                        mesh=mesh, global_rows=len(covs),
+                        tpu_products=trainer.config.tpu_products)[0]
             if mesh is not None:
                 mu = all_gather_rows(mu, mesh, len(covs))
             chunks.append(mu.cpu().numpy())

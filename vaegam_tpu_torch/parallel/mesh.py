@@ -280,6 +280,30 @@ def all_reduce_sum(t: torch.Tensor, mesh: DataMesh) -> torch.Tensor:
     return _AllReduceSum.apply(t, mesh)
 
 
+class _MeanCotangent(torch.autograd.Function):
+    """The identity, whose backward gives every rank the ranks' mean
+    cotangent."""
+
+    @staticmethod
+    def forward(ctx, t, mesh):
+        ctx.mesh = mesh
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g.contiguous().clone(), ctx.mesh) / ctx.mesh.world, None
+
+
+def mean_cotangent(t: torch.Tensor, mesh: DataMesh) -> torch.Tensor:
+    """``t`` (replicated: every rank computes it over the global batch),
+    differentiated with the ranks' mean cotangent in place of the rank's
+    own share.  The summed gradients stay the same; a product upstream
+    that rounds its cotangent (``ops.products``) then rounds the global
+    cotangent, as one process does: exactly so for a power-of-two world,
+    where the division by it is exact."""
+    return _MeanCotangent.apply(t, mesh)
+
+
 def all_reduce_max(t: torch.Tensor, mesh: DataMesh) -> torch.Tensor:
     """Elementwise maximum of ``t`` over the ranks (no gradient)."""
     return _all_reduce(t.detach().clone(), mesh, dist.ReduceOp.MAX)

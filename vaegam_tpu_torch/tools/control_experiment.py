@@ -293,6 +293,13 @@ def build_parser():
                         help="Inject motion-correlated artifacts with known "
                         "octahedral maps at this intensity.  Default: 150 for "
                         "multi-subject runs, 0 for single-subject.")
+    parser.add_argument("--tpu_products", action="store_true", default=False,
+                        help="Compute every product of the step in the TPU's "
+                        "arithmetic, the one the JAX package's records were "
+                        "made in: both operands rounded to bfloat16, float32 "
+                        "sums (VAEGAMConfig.tpu_products).")
+    parser.add_argument("--no-tpu_products", dest="tpu_products",
+                        action="store_false")
     parser.add_argument("--device", type=str, default=None,
                         help="Torch device to run on (default: the CUDA device; "
                         "'cpu' runs the port on the CPU).")
@@ -393,6 +400,7 @@ def main(argv=None):
                           img_shape=img_shape,
                           qu_s_cholesky=args.qu_s_cholesky,
                           fused_norm_stats=args.fused_norm_stats,
+                          tpu_products=args.tpu_products,
                           **stack_kw)
     loaders = setup_device_loaders(batch_size=args.batch_size, train_csv=csv,
                                    test_csv=csv, seed=args.seed,
@@ -477,6 +485,7 @@ def main(argv=None):
         "half_recipe": recipe,
         "bf16_warmstart": warm,
         "epoch_scan": args.epoch_scan,
+        "tpu_products": args.tpu_products,
         "train_seconds": round(train_secs, 1),
         "train_vols_per_sec": round(vols_per_sec, 1),
         "task_map_mean_inside": round(rec["inside_mean"], 4),

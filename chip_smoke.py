@@ -1188,6 +1188,17 @@ def compare_recon_pipeline(trainer, loader, design, out_dir: Path):
     return times
 
 
+def span_seconds(name: str) -> dict:
+    """Seconds of the recorded spans called `name`, summed by epoch."""
+    from vaegam_tpu_torch.utils import spans
+
+    out = {}
+    for r in spans.records():
+        if r.name == name:
+            out[r.step[0]] = out.get(r.step[0], 0.0) + (r.end_ns - r.start_ns) * 1e-9
+    return out
+
+
 def drive_cli(conv5_mod, libs, root: Path):
     """Phases 5 and 6, under `root`; the study stays in root/"study" for
     phase 9c and the runs' files are deleted.  Returns (conv5 launches by
@@ -1195,6 +1206,7 @@ def drive_cli(conv5_mod, libs, root: Path):
     glm csv, root))."""
     from vaegam_tpu_torch.models import VAEGAMConfig
     from vaegam_tpu_torch.train import Trainer, load_checkpoint
+    from vaegam_tpu_torch.utils import spans
     from vaegam_tpu_torch.utils.jax_params import params_to_jax
     from vaegam_tpu_torch.utils.tree import tree_items
 
@@ -1214,16 +1226,25 @@ def drive_cli(conv5_mod, libs, root: Path):
                     "--seed", str(SEED), "--test_freq", "1", *extra]
 
         # fp32, the default config: conv5 through the kernel; TensorBoard at
-        # the CLI's defaults (figures at batch 0 of every epoch)
+        # the CLI's defaults (figures at batch 0 of every epoch), timed by
+        # its spans
         torch.cuda.reset_peak_memory_stats()
-        t, loaders, launches, _ = run_cli(conv5_mod, argv(
-            "fp32", "--epochs", str(CLI_EPOCHS), "--save_freq", "1", "--no_outputs"), "fp32")
+        spans.reset()
+        spans.enable()
+        try:
+            t, loaders, launches, _ = run_cli(conv5_mod, argv(
+                "fp32", "--epochs", str(CLI_EPOCHS), "--save_freq", "1", "--no_outputs"),
+                "fp32")
+        finally:
+            spans.disable()
+        tb_s, figure_s = span_seconds("train.tb"), span_seconds("train.figures")
+        spans.reset()
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
         forwards = 2 * CLI_EPOCHS * steps + CLI_EPOCHS
         print(f"CLI fp32: conv5 launches {launches} for {forwards} forwards "
               f"({CLI_EPOCHS} epochs x {steps} train and {steps} test, and one figure "
               f"batch an epoch); losses {t.loss}; TensorBoard s an epoch: epoch end "
-              f"{t.tb_seconds}, figure batches {t.figure_seconds}")
+              f"{tb_s}, figure batches {figure_s}")
         if launches != forwards:
             fail("conv5 did not launch once per fp32 forward in the CLI run")
         ckpts = [root / "fp32" / f"checkpoint_{e:03d}.tar" for e in (1, 2)]
@@ -1236,7 +1257,7 @@ def drive_cli(conv5_mod, libs, root: Path):
                        fp32=dict(epoch_numbers(t, range(CLI_EPOCHS), n_vols),
                                  train_losses=[t.loss["train"][e] for e in range(CLI_EPOCHS)],
                                  conv5_launches=launches, forwards=forwards,
-                                 tb_epoch_end_s=[t.tb_seconds[e] for e in range(CLI_EPOCHS)]))
+                                 tb_epoch_end_s=[tb_s[e] for e in range(CLI_EPOCHS)]))
 
         # checkpoint I/O on the fp32 trainer, and a fresh load of checkpoint_002
         save_ms, load_ms, probe = [], [], str(root / "probe.tar")
@@ -1336,7 +1357,7 @@ def drive_cli(conv5_mod, libs, root: Path):
             libs)
         outputs["tensorboard"] = {
             "epoch_end_s": numbers["fp32"]["tb_epoch_end_s"],
-            "figure_batch_s": [t.figure_seconds[e] for e in range(CLI_EPOCHS)]}
+            "figure_batch_s": [figure_s[e] for e in range(CLI_EPOCHS)]}
         outputs["umap_fixture"] = check_umap_on_card()
         outputs["host_libraries"] = libs
 

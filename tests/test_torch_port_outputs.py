@@ -39,7 +39,7 @@ from vaegam_tpu_torch.models import VAEGAMConfig
 from vaegam_tpu_torch.models import gp as port_gp
 from vaegam_tpu_torch.outputs import gp_plots, latents, recons
 from vaegam_tpu_torch.train import Trainer
-from vaegam_tpu_torch.utils import nifti
+from vaegam_tpu_torch.utils import nifti, spans
 
 from torch_port_common import (THIN, XU_RANGES, f64_jax, f64_port, jax_float64,
                                make_model, to_np)
@@ -331,8 +331,13 @@ def test_trainer_tensorboard_tags_match_jax(study, tmp_path):
                   epochs=1, test_freq=None, save_freq=None)
     pt = Trainer(VAEGAMConfig(**THIN), XU_RANGES, save_dir=str(pdir), log_figs_every=2,
                  device="cpu")
-    pt.train_loop(setup_data_loaders(batch_size=4, train_csv=csv, test_csv=csv),
-                  epochs=1, test_freq=None, save_freq=None)
+    spans.reset()
+    spans.enable()
+    try:
+        pt.train_loop(setup_data_loaders(batch_size=4, train_csv=csv, test_csv=csv),
+                      epochs=1, test_freq=None, save_freq=None)
+    finally:
+        spans.disable()
     jt.writer.close()  # tensorboardX's flush can leave the last event queued
     pt.writer.close()
     want, got = _tb_tags(str(jdir)), _tb_tags(str(pdir))
@@ -341,7 +346,7 @@ def test_trainer_tensorboard_tags_match_jax(study, tmp_path):
     assert scalars == ["Loss/Train"]
     assert {"q_u__train", "q_k__train", "Beta/task_train", "base_map_train_12/0",
             "full_reconstruction_train_18/3"} <= set(images)
-    assert sorted(pt.tb_seconds) == [0]
+    assert [r.step for r in spans.records() if r.name == "train.tb"] == [(0, None)]
 
 
 # ---------------------------------------------------------------------------

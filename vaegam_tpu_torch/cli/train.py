@@ -10,7 +10,8 @@ inducing-point ranges from the CSVs, the Trainer with TensorBoard, ``--from_ckpt
 the output stage (latent plot, GP plots, per-volume reconstructions,
 averaged maps; ``--no_outputs`` skips it, ``--recons_only`` runs it alone
 from a checkpoint, ``--eval_batch_size`` widens its batches), and an
-optional torch.profiler trace.  ``--epoch_scan`` replays a CUDA graph of
+optional torch.profiler trace (``--profile_dir``: ``trace.json``, and the
+run's ``utils.spans`` records in ``spans.json``).  ``--epoch_scan`` replays a CUDA graph of
 each batch width's gather-fused step on device-cache epochs (the Trainer's
 ``epoch_scan``; on the CPU the steps run eagerly).
 
@@ -50,6 +51,7 @@ from ..outputs import mk_avg_maps, mk_single_volumes, plot_GPs, project_latent
 from ..parallel import init_multihost, leave, make_data_mesh
 from ..parallel.mesh import free_port
 from ..train import Trainer
+from ..utils import spans
 from ..utils.stats import get_xu_ranges, str2bool
 
 def build_parser():
@@ -106,7 +108,7 @@ def build_parser():
     parser.add_argument("--num_latents", type=int, metavar="N", default=32,
                         help="VAE latent dimension (reference default 32).")
     parser.add_argument("--profile_dir", type=str, metavar="N", default="",
-                        help="If set, write a torch.profiler trace of training (trace.json) into this directory.")
+                        help="If set, write a torch.profiler trace of training (trace.json) and the run's spans (spans.json) into this directory.")
     parser.add_argument("--img_shape", type=int, metavar="N", nargs=3,
                         default=[41, 49, 35],
                         help="Volume grid (x y z). Default is the reference's 41 49 35; e.g. 91 109 91 for MNI-grid volumes.")
@@ -195,6 +197,8 @@ def main(argv=None):
             leave(mesh)  # after a barrier: every rank is done with its files
         return out
     finally:
+        if args.profile_dir:
+            spans.disable()
         if owns_group and torch.distributed.is_initialized():
             torch.distributed.destroy_process_group()  # a rank failed: no barrier
         for p in ranks:
@@ -213,6 +217,9 @@ def _run(args, mesh):
         args.save_dir = os.getcwd()
     os.makedirs(args.save_dir, exist_ok=True)
     main_start = time.time()
+    if args.profile_dir:
+        spans.reset()
+        spans.enable()
 
     loader_kwargs = dict(batch_size=args.batch_size, train_csv=args.train_csv,
                          test_csv=args.test_csv, seed=args.seed)
@@ -309,6 +316,7 @@ def _run(args, mesh):
         prof.stop()
         os.makedirs(args.profile_dir, exist_ok=True)
         prof.export_chrome_trace(os.path.join(args.profile_dir, "trace.json"))
+        spans.dump(os.path.join(args.profile_dir, "spans.json"))
     print(f"Total model runtime (seconds): {time.time() - main_start}")
     return trainer, loaders_dict
 

@@ -25,7 +25,6 @@ float32 when it fits the budget and float16 otherwise.
 from __future__ import annotations
 
 import os
-import time
 from typing import Iterator, Optional
 
 import numpy as np
@@ -33,6 +32,7 @@ import torch
 
 from .._device import resolve_device
 from ..parallel.mesh import batch_rows
+from ..utils import spans
 from .dataset import FMRIDataset, check_row_sharding
 
 DEFAULT_MAX_BYTES = 4 << 30  # refuse to cache datasets larger than 4 GiB
@@ -57,7 +57,8 @@ class DeviceResidentLoader:
     volume holds this rank's rows of it (module docstring).
 
     ``build_seconds`` records the cold start: the dataset's host decode
-    (budget check included) and the upload.
+    (budget check included) and the upload (the ``cache.upload`` span's
+    seconds).
     """
 
     def __init__(
@@ -106,15 +107,15 @@ class DeviceResidentLoader:
             # chunked parallel decode (native thread pool): 16 subject files
             # at a time, released once their rows land in the stacked array
             host = dataset.gather(rows, chunk_files=16)
-        t1 = time.perf_counter()
-        vols = torch.from_numpy(np.ascontiguousarray(host["volume"], np.float32))
-        self.vols = vols.to(self.cache_dtype).to(device)
-        self.covs = torch.from_numpy(
-            np.ascontiguousarray(host["covariates"], np.float32)).to(device)
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
+        with spans.timed("cache.upload") as upload:
+            vols = torch.from_numpy(np.ascontiguousarray(host["volume"], np.float32))
+            self.vols = vols.to(self.cache_dtype).to(device)
+            self.covs = torch.from_numpy(
+                np.ascontiguousarray(host["covariates"], np.float32)).to(device)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
         self.build_seconds = {"decode": 0.0 if dataset is None else dataset.decode_seconds,
-                              "upload": time.perf_counter() - t1}
+                              "upload": upload.seconds}
         if len(self.vols) != len(self.covs):
             raise ValueError("volumes and covariates differ in length")
         self._subjid = np.asarray(host["subjid"])

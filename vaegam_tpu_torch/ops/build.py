@@ -17,6 +17,8 @@ import subprocess
 import tempfile
 from pathlib import Path
 
+from ..utils import spans
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 
@@ -68,4 +70,5 @@ def build(name: str, defines: tuple[str, ...] = ()) -> Path:
 
 
 def load(name: str, defines: tuple[str, ...] = ()) -> ctypes.CDLL:
-    return ctypes.CDLL(str(build(name, defines)))
+    with spans.span("ops.build", attrs={"library": name}):
+        return ctypes.CDLL(str(build(name, defines)))

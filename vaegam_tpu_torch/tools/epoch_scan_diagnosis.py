@@ -123,8 +123,8 @@ def main(argv=None):
             if args.mode == "scan":
                 losses, fbs, _ = trainer._train_epoch_replayed(loader)
             else:
-                losses, fbs, _ = trainer._run_steps(
-                    loader.gather(sel) for sel in loader.iter_index_batches())
+                losses, fbs, _ = trainer._run_steps(loader.iter_index_batches(),
+                                                    loader.gather)
             t1 = time.perf_counter()
             ep_loss = float(losses.sum())
             t2 = time.perf_counter()

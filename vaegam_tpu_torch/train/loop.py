@@ -52,7 +52,6 @@ import dataclasses
 import datetime
 import os
 import pickle
-import time
 from typing import Dict, Optional
 
 import numpy as np
@@ -63,7 +62,7 @@ from ..models.vaegam import (COVARIATE_KEYS, VAEGAMConfig, draw_noise, forward,
                              init_model, resolve_qu_S)
 from ..parallel.mesh import (all_gather_rows, all_reduce_grads, barrier, batch_rows,
                              is_main_process, put_replicated)
-from ..utils import prng, tb
+from ..utils import prng, spans, tb
 from ..utils.jax_params import params_from_jax, params_to_jax
 from ..utils.tree import tree_items, tree_map
 from .checkpoint import (checkpoint_filename, flatten, load_checkpoint,
@@ -92,10 +91,14 @@ class Trainer:
     ``recon_wire_dtype`` "float16" casts the output stage's maps to float16
     on the device before their copy to the host (half the bytes; the files
     stay float32); training-time figures always use fp32 maps.
-    ``epoch_seconds``, ``tb_seconds`` (the per-epoch TensorBoard logging),
-    ``figure_seconds`` (the per-batch figures of an epoch, their maps
-    forward included) and ``output_stats`` (filled by the ``outputs``
-    functions) record where a run's time went.
+    ``epoch_seconds`` (from each ``train.epoch`` span's clock reads) and
+    ``output_stats`` (filled by the ``outputs`` functions) record where a
+    run's time went; ``utils.spans``, when on, records the layers inside
+    each epoch and step (``train.step``, ``step.gather``, ``step.forward``,
+    ``step.backward``, ``step.all_reduce``, ``step.adam``, ``step.noise``,
+    ``step.replay``, ``step.capture``, ``train.epoch_sync``) and around it
+    (``train.test_epoch``, ``train.tb``, ``train.figures``,
+    ``train.checkpoint``).
     """
 
     def __init__(
@@ -162,8 +165,6 @@ class Trainer:
         self.mvn_fallbacks = 0
         self._skips_warned = 0
         self.epoch_seconds: Dict[int, float] = {}
-        self.tb_seconds: Dict[int, float] = {}
-        self.figure_seconds: Dict[int, float] = {}
         self.output_stats: Dict[str, object] = {}
 
         # the figures' maps forward runs whenever figures are on, as in the
@@ -278,13 +279,17 @@ class Trainer:
         noise=(eps_w, eps_d, eps_beta) injects the draws; otherwise they come
         from the Trainer's generator.  Returns (loss, aux) as device tensors.
         """
-        loss, aux = forward(self.params, self.consts, covariates, x,
-                            self.config, noise=noise, generator=self.generator,
-                            mesh=self.mesh)
-        grads = torch.autograd.grad(loss, self._leaves)
+        with spans.span("step.forward"):
+            loss, aux = forward(self.params, self.consts, covariates, x,
+                                self.config, noise=noise, generator=self.generator,
+                                mesh=self.mesh)
+        with spans.span("step.backward"):
+            grads = torch.autograd.grad(loss, self._leaves)
         if self.mesh is not None:
-            grads = all_reduce_grads(grads, self.mesh)
-        self._apply_gradients(grads)
+            with spans.span("step.all_reduce"):
+                grads = all_reduce_grads(grads, self.mesh)
+        with spans.span("step.adam"):
+            self._apply_gradients(grads)
         aux = {k: v.detach() for k, v in aux.items() if torch.is_tensor(v)}
         return loss.detach(), aux
 
@@ -322,40 +327,41 @@ class Trainer:
         replays under ``epoch_scan``), host batches otherwise.  Losses and
         fallback counts stay on the device until one sync at the end of the
         epoch."""
-        t0 = time.perf_counter()
-        # epoch-addressed shuffle: a resume continues the unbroken order
-        if hasattr(loader, "set_epoch"):
-            loader.set_epoch(self.epoch)
-        if hasattr(loader, "iter_index_batches"):
-            if loader.mesh != self.mesh:
-                raise ValueError("a device cache gathers the rows of its own mesh: "
-                                 "build it with the Trainer's")
-            if self.config.dtype != torch.float32:
-                raise ValueError(
-                    f"a {self.config.dtype} model trains from host batches "
-                    "(setup_data_loaders or setup_prefetch_loaders): the device "
-                    "cache's gather restores float32, as the JAX package's does")
-            if self.epoch_scan:
-                losses, fbs, last_covs = self._train_epoch_replayed(loader)
+        with spans.timed("train.epoch", (self.epoch, None)) as epoch_span:
+            # epoch-addressed shuffle: a resume continues the unbroken order
+            if hasattr(loader, "set_epoch"):
+                loader.set_epoch(self.epoch)
+            if hasattr(loader, "iter_index_batches"):
+                if loader.mesh != self.mesh:
+                    raise ValueError("a device cache gathers the rows of its own mesh: "
+                                     "build it with the Trainer's")
+                if self.config.dtype != torch.float32:
+                    raise ValueError(
+                        f"a {self.config.dtype} model trains from host batches "
+                        "(setup_data_loaders or setup_prefetch_loaders): the device "
+                        "cache's gather restores float32, as the JAX package's does")
+                if self.epoch_scan:
+                    losses, fbs, last_covs = self._train_epoch_replayed(loader)
+                else:
+                    losses, fbs, last_covs = self._run_steps(loader.iter_index_batches(),
+                                                             loader.gather)
             else:
-                losses, fbs, last_covs = self._run_steps(
-                    loader.gather(sel) for sel in loader.iter_index_batches())
-        else:
-            losses, fbs, last_covs = self._run_steps(self._put_batch(s) for s in loader)
-        train_loss = float(losses.sum()) if losses is not None else 0.0
-        self._account_mvn_fallbacks(fbs)
-        if not np.isfinite(train_loss):
-            # a non-PSD qu_S turns the loss NaN through the KL Cholesky
-            self.check_gp_stability(last_covs)
-        if self.skip_nonfinite_updates:
-            skipped = int(self.opt_state["total_notfinite"])
-            if skipped and skipped != self._skips_warned:
-                self._skips_warned = skipped
-                print(f"  [warn] {skipped} non-finite gradient step(s) "
-                      "skipped so far (reference would have crashed here)")
-        train_loss /= loader.num_samples
-        print(f"Epoch: {self.epoch} Average loss: {train_loss:.4f}")
-        self.epoch_seconds[self.epoch] = time.perf_counter() - t0
+                losses, fbs, last_covs = self._run_steps(loader, self._put_batch)
+            with spans.span("train.epoch_sync"):
+                train_loss = float(losses.sum()) if losses is not None else 0.0
+                self._account_mvn_fallbacks(fbs)
+                if not np.isfinite(train_loss):
+                    # a non-PSD qu_S turns the loss NaN through the KL Cholesky
+                    self.check_gp_stability(last_covs)
+                if self.skip_nonfinite_updates:
+                    skipped = int(self.opt_state["total_notfinite"])
+                    if skipped and skipped != self._skips_warned:
+                        self._skips_warned = skipped
+                        print(f"  [warn] {skipped} non-finite gradient step(s) "
+                              "skipped so far (reference would have crashed here)")
+            train_loss /= loader.num_samples
+            print(f"Epoch: {self.epoch} Average loss: {train_loss:.4f}")
+        self.epoch_seconds[self.epoch] = epoch_span.seconds
         self.epoch += 1
         return train_loss
 
@@ -366,23 +372,25 @@ class Trainer:
         """A figure step's figures, from the step's own gathered batch: on
         the device cache this is the JAX Trainer's re-gather of the sampled
         batch alone."""
-        t_fig = time.perf_counter()
-        self._log_batch_figures(covs, x, "train")
-        self.figure_seconds[self.epoch] = (self.figure_seconds.get(self.epoch, 0.0)
-                                           + time.perf_counter() - t_fig)
+        with spans.span("train.figures"):
+            self._log_batch_figures(covs, x, "train")
 
-    def _run_steps(self, batches):
-        """Eager steps over (covariates, volume) batches; returns the losses
-        and fallback counts stacked on the device (None for no batch) and
-        the last batch's covariates."""
+    def _run_steps(self, batches, put):
+        """Eager steps over a loader's batches (a device cache's index
+        arrays, or host samples), each made (covariates, volume) on the
+        device by `put`; returns the losses and fallback counts stacked on
+        the device (None for no batch) and the last batch's covariates."""
         losses, fbs, last_covs = [], [], None
-        for batch_idx, (covs, x) in enumerate(batches):
-            loss, aux = self.train_step(covs, x)
-            losses.append(loss)
-            fbs.append(aux["mvn_fallbacks"])
-            last_covs = covs
-            if self._is_figure_step(batch_idx):
-                self._step_figures(covs, x)
+        for batch_idx, batch in enumerate(batches):
+            with spans.step(self.epoch, batch_idx, _width(batch), "eager"):
+                with spans.span("step.gather"):
+                    covs, x = put(batch)
+                loss, aux = self.train_step(covs, x)
+                losses.append(loss)
+                fbs.append(aux["mvn_fallbacks"])
+                last_covs = covs
+                if self._is_figure_step(batch_idx):
+                    self._step_figures(covs, x)
         if not losses:
             return None, None, None
         return torch.stack(losses), torch.stack(fbs), last_covs
@@ -400,19 +408,22 @@ class Trainer:
         losses = fbs = None
         start = 0
         for i, sel in enumerate(sels):
-            if self._is_figure_step(i):
-                covs, x = loader.gather(sel)
-                loss, aux = self.train_step(covs, x)
-                fb = aux["mvn_fallbacks"]
-                self._step_figures(covs, x)
-            else:
-                loss, fb = self._replay_step(loader, order[start:start + len(sel)])
-            if losses is None:
-                losses, fbs = loss.new_empty(len(sels)), fb.new_empty(len(sels))
-            # read a graph's outputs before the next replay: the graphs
-            # share one memory pool
-            losses[i].copy_(loss)
-            fbs[i].copy_(fb)
+            figure = self._is_figure_step(i)
+            with spans.step(self.epoch, i, len(sel), "eager" if figure else "replay"):
+                if figure:
+                    with spans.span("step.gather"):
+                        covs, x = loader.gather(sel)
+                    loss, aux = self.train_step(covs, x)
+                    fb = aux["mvn_fallbacks"]
+                    self._step_figures(covs, x)
+                else:
+                    loss, fb = self._replay_step(loader, order[start:start + len(sel)])
+                if losses is None:
+                    losses, fbs = loss.new_empty(len(sels)), fb.new_empty(len(sels))
+                # read a graph's outputs before the next replay: the graphs
+                # share one memory pool
+                losses[i].copy_(loss)
+                fbs[i].copy_(fb)
             start += len(sel)
         return losses, fbs, loader.covs.index_select(0, order[-len(sels[-1]):])
 
@@ -430,25 +441,31 @@ class Trainer:
         width's graph is captured after it, and every later step at that
         width is a replay.  A capture or replay that fails raises."""
         width = idx.shape[0]
-        noise = draw_noise(self.generator, width, self.config, self.device)
+        with spans.span("step.noise"):
+            noise = draw_noise(self.generator, width, self.config, self.device)
         if self.device.type != "cuda":
-            covs, x = loader.gather_index(idx)
+            spans.annotate(kind="eager")
+            with spans.span("step.gather"):
+                covs, x = loader.gather_index(idx)
             loss, aux = self.train_step(covs, x, noise=noise)
             return loss, aux["mvn_fallbacks"]
         g = self._graphs.get(width)
         if g is None or not g.reads(loader):
-            g = _StepGraph(loader, idx, noise)
-            out = g.warm_up(self.train_step)
-            if self._graph_pool is None:
-                self._graph_pool = torch.cuda.graph_pool_handle()
-            # NCCL's watchdog thread queries events while a capture runs
-            g.capture(self.train_step, self._graph_pool,
-                      "global" if self.mesh is None else "thread_local")
+            spans.annotate(kind="capture")
+            with spans.span("step.capture"):
+                g = _StepGraph(loader, idx, noise)
+                out = g.warm_up(self.train_step)
+                if self._graph_pool is None:
+                    self._graph_pool = torch.cuda.graph_pool_handle()
+                # NCCL's watchdog thread queries events while a capture runs
+                g.capture(self.train_step, self._graph_pool,
+                          "global" if self.mesh is None else "thread_local")
             self._graphs[width] = g
             self.captures[width] = self.captures.get(width, 0) + 1
             return out
-        g.load(idx, noise)
-        g.graph.replay()
+        with spans.span("step.replay"):
+            g.load(idx, noise)
+            g.graph.replay()
         self.replays[width] = self.replays.get(width, 0) + 1
         return g.loss, g.fallbacks
 
@@ -464,13 +481,14 @@ class Trainer:
     def test_epoch(self, loader) -> float:
         """Forward with generator-drawn noise over every batch, no gradient;
         the loss normalized like the train loss."""
-        losses = []
-        for sample in loader:
-            covs, x = self._put_batch(sample)
-            loss, _ = forward(self.params, self.consts, covs, x, self.config,
-                              generator=self.generator, mesh=self.mesh)
-            losses.append(loss)
-        test_loss = float(torch.stack(losses).sum()) if losses else 0.0
+        with spans.span("train.test_epoch"):
+            losses = []
+            for sample in loader:
+                covs, x = self._put_batch(sample)
+                loss, _ = forward(self.params, self.consts, covs, x, self.config,
+                                  generator=self.generator, mesh=self.mesh)
+                losses.append(loss)
+            test_loss = float(torch.stack(losses).sum()) if losses else 0.0
         test_loss /= loader.num_samples
         print(f"Test loss: {test_loss:.4f}")
         return test_loss
@@ -486,18 +504,17 @@ class Trainer:
             loss = self.train_epoch(loaders["Shuffled_train"])
             self.loss["train"][epoch] = loss
             if self.writer is not None:
-                t0 = time.perf_counter()
-                self.writer.add_scalar("Loss/Train", loss, self.epoch)
-                gp_np = {k: v.detach().cpu().numpy()
-                         for k, v in self.params["gp"].items()}
-                gp_np["qu_S"] = resolve_qu_S(self.params["gp"]).detach().cpu().numpy()
-                xu_np = self.consts["xu"].cpu().numpy()
-                self._figure("q(u)_train", tb.log_qu_plots, self.epoch, gp_np,
-                             xu_np, self.writer, "train")
-                self._figure("q(k)_train", tb.log_qkappa_plots, gp_np,
-                             self.writer, "train")
-                self.writer.flush()
-                self.tb_seconds[epoch] = time.perf_counter() - t0
+                with spans.span("train.tb", (epoch, None)):
+                    self.writer.add_scalar("Loss/Train", loss, self.epoch)
+                    gp_np = {k: v.detach().cpu().numpy()
+                             for k, v in self.params["gp"].items()}
+                    gp_np["qu_S"] = resolve_qu_S(self.params["gp"]).detach().cpu().numpy()
+                    xu_np = self.consts["xu"].cpu().numpy()
+                    self._figure("q(u)_train", tb.log_qu_plots, self.epoch, gp_np,
+                                 xu_np, self.writer, "train")
+                    self._figure("q(k)_train", tb.log_qkappa_plots, gp_np,
+                                 self.writer, "train")
+                    self.writer.flush()
             if test_freq is not None and epoch % test_freq == 0:
                 self.loss["test"][epoch] = self.test_epoch(loaders["test"])
             if save_freq is not None and epoch % save_freq == 0 and epoch > 0:
@@ -611,27 +628,28 @@ class Trainer:
 
     def save_state(self, filename: str):
         """Write a checkpoint (rank 0; every rank waits until it exists)."""
-        if not is_main_process(self.mesh):
+        with spans.span("train.checkpoint"):
+            if not is_main_process(self.mesh):
+                barrier(self.mesh)
+                return
+            params, consts = params_to_jax(self.params, self.consts, self.config)
+            save_checkpoint(
+                filename,
+                params,
+                self._opt_state_to_jax(),
+                epoch=self.epoch,
+                loss=self.loss,
+                z_dim=self.config.z_dim,
+                lr=self.lr,
+                save_dir=self.save_dir,
+                glm_reg_scale=self.config.glm_reg_scale,
+                gp_kl_scale=self.config.gp_kl_scale,
+                inducing_pts=self.config.num_inducing_pts,
+                consts=consts,
+                torch_rng_state={"device": self.device.type,
+                                 "state": self.generator.get_state().numpy()},
+            )
             barrier(self.mesh)
-            return
-        params, consts = params_to_jax(self.params, self.consts, self.config)
-        save_checkpoint(
-            filename,
-            params,
-            self._opt_state_to_jax(),
-            epoch=self.epoch,
-            loss=self.loss,
-            z_dim=self.config.z_dim,
-            lr=self.lr,
-            save_dir=self.save_dir,
-            glm_reg_scale=self.config.glm_reg_scale,
-            gp_kl_scale=self.config.gp_kl_scale,
-            inducing_pts=self.config.num_inducing_pts,
-            consts=consts,
-            torch_rng_state={"device": self.device.type,
-                             "state": self.generator.get_state().numpy()},
-        )
-        barrier(self.mesh)
 
     def _load_opt_state(self, opt_state, jax_params) -> None:
         """Optimizer leaves in optax's order -> the port's state; a structure
@@ -705,6 +723,11 @@ class Trainer:
                   "key): the PRNG chain restarts from this Trainer's seed")
 
 
+def _width(batch) -> int:
+    """A batch's rows: an index array's length, a host sample's covariates'."""
+    return len(batch["covariates"]) if isinstance(batch, dict) else len(batch)
+
+
 class _StepGraph:
     """One batch width's gather-fused train step as a CUDA graph.
 
@@ -738,7 +761,8 @@ class _StepGraph:
             buf.copy_(n)
 
     def _step(self, train_step):
-        covs, x = self.gather_index(self.idx)
+        with spans.span("step.gather"):
+            covs, x = self.gather_index(self.idx)
         loss, aux = train_step(covs, x, noise=self.noise)
         return loss, aux["mvn_fallbacks"]
 

@@ -7,10 +7,12 @@
 
 Phases, in this order but 4c, which runs after 7 (any failure exits
 non-zero; nothing is caught to exit 0; phase 7's recovery verdict alone is
-read after phase 9, so that a run whose oracle did not recover still
-drives and reports every later phase before it exits non-zero):
+read after phase 12's numbers, so that a run whose oracle did not
+recover still drives and reports every later phase before it exits
+non-zero):
   1. the card: name and power limit (nvidia-smi), TF32 off;
-  2. build every CUDA kernel of the main path from this checkout's sources;
+  2. build every CUDA kernel of the main path (conv5, adam) from this
+     checkout's sources;
   2b. the tensor-core instructions (HMMA) in the built conv5 library;
   3. each kernel against its plain PyTorch version on the card, forward and
      backward, at every shape the main path gives it (batch 32, the study's
@@ -22,12 +24,20 @@ drives and reports every later phase before it exits non-zero):
      device time of conv5 and F.conv3d at the main and MNI shapes, with
      the CUDA-event time of 200 back-to-back calls and the host time to
      enqueue one call beside it;
+ 3b. the Adam kernel (two launches a step) against adam_plain on two
+     copies of the ref41 model's 63 leaves on the card, fp32 and with a
+     float64 epsilon, over ADAM_STEPS steps, one with a NaN gradient:
+     parameters, moments and counters bit for bit (SHA-256) after every
+     step, two launches a step, the NaN step skipped and counted; the
+     device time a step of both (torch.profiler; the kernel also from
+     CUDA-graph replays), the host time to enqueue one, and the kernel's
+     bound (32 B a float32 parameter at HBM_BYTES_PER_S);
   4. the train step at the reference's full width: a Trainer at the default
      config (nf=8, 32 latents, 41x49x35, fp32, per-one-hot decoder norm
      statistics, GLM maps on, conv5 kernel on) trains one epoch over 128
      synthetic volumes held on the card (batch 32, 4 steps), then 20 timed
-     steps; every loss must be finite and conv5 must have launched once per
-     forward.  One deterministic B=4 forward on the card must match the
+     steps; every loss must be finite, conv5 must have launched once per
+     forward and the Adam kernel twice a step.  One deterministic B=4 forward on the card must match the
      same model's CPU forward (plain kernels), on well-conditioned inducing
      grids: tot_loss rtol 1e-4;
  4b. a float64 model at the same width (JAX's partial float64: norm
@@ -36,7 +46,8 @@ drives and reports every later phase before it exits non-zero):
      same step on the CPU with the same weights and noise: loss within rtol
      F64_LOSS_RTOL, the gradients (the first Adam moment) within
      F64_GRAD_SHARE of each leaf's largest entry; then 5 timed steps on the
-     card; conv5 must not launch;
+     card; conv5 must not launch, the Adam kernel (float64 leaves) twice a
+     card step;
  4c. the Trainer's epoch_scan (a CUDA graph of the gather-fused step per
      batch width, captured after the width's first eager step and replayed
      for every later one) at full width on phase 4's 128 volumes and 2
@@ -50,7 +61,12 @@ drives and reports every later phase before it exits non-zero):
      (the steady s/epoch and ms/step, the first apart), the graphs' memory
      pool, one profiled epoch each (conv5's kernel events must equal its
      launches plus replays; the host's cudaStreamSynchronize calls), and 2
-     bf16 epochs replayed against 2 eager ones (losses rtol 1e-4, no conv5);
+     bf16 epochs replayed against 2 eager ones (losses rtol 1e-4, no conv5).
+     On every run the Adam kernel runs twice a step (its launches outside a
+     graph plus two a replay, two captured a graph); in the profiled
+     epochs its counters advance once a step, and its kernel events equal
+     that count eager and do not pass it replayed (the profiler can keep
+     part of a replayed graph's records);
   5. the train CLI on a NIfTI study: a 10-subject study at the reference
      grid (98 volumes a subject, 980 in all, one subject .nii.gz, the rest
      .nii) is written with the port's NIfTI codec, with its design and GLM
@@ -179,14 +195,16 @@ drives and reports every later phase before it exits non-zero):
      conv5 once a train and recon forward; every one-pass launch shape
      checked in 11a;
  12. one JSON line with the seconds of each phase and of the whole run
-     (after the imports) beside the card, then (phase 7's verdict read
-     here) one JSON line with phase 10's numbers, one with phase 11's, one
+     (after the imports) beside the card, then one JSON line with phase
+     10's numbers, one with phase 11's, one
      with the kernels' numbers (conv5's launches by path,
-     the epoch_scan paths' as launches plus replays, the ranks'), one with
+     the epoch_scan paths' as launches plus replays, the ranks'; adam's
+     runs by path of phases 4-4c, its phase 3b times and bound, its device
+     ms a step in 4c's profiled eager epoch), one with
      the step time, one with the float64 step, one with epoch_scan's
      (phases 4c and 7b), one with the CLI's numbers (converters included),
      one with the output stage's numbers, one with the oracle's, one with
-     beta_maps' and one with data parallel's;
+     beta_maps' and one with data parallel's; then phase 7's verdict;
  13. as the last line: {"ok": true, "device": {...}}.
 Imports nothing of JAX or of the JAX package.
 """
@@ -479,6 +497,137 @@ def count_hmma(lib) -> int:
 
 
 # ---------------------------------------------------------------------------
+# adam
+# ---------------------------------------------------------------------------
+
+ADAM_STEPS, ADAM_NAN_STEP, ADAM_LR = 6, 3, 1e-3   # the Trainer's lr
+ADAM_EVENTS = ("adam_check", "adam_apply")         # the kernel's two functions
+
+
+def adam_sides(leaves):
+    """Two copies of `leaves` (the kernel's side and the plain version's),
+    zero moments and fresh counters each, as a Trainer starts."""
+    from vaegam_tpu_torch.ops import adam as adam_mod
+
+    sides = []
+    for _ in range(2):
+        p = [t.clone() for t in leaves]
+        counters = {k: torch.zeros((), dtype=d, device="cuda")
+                    for k, d in zip(adam_mod.COUNTERS, adam_mod._COUNTER_DTYPES)}
+        counters["last_finite"].fill_(True)
+        sides.append((p, [torch.zeros_like(t) for t in p], [torch.zeros_like(t) for t in p],
+                      counters))
+    return sides
+
+
+def adam_digest(side) -> str:
+    """SHA-256 of a side's parameters, moments and counters."""
+    import hashlib
+
+    from vaegam_tpu_torch.ops.adam import COUNTERS
+
+    p, m, v, counters = side
+    digest = hashlib.sha256()
+    for t in [*p, *m, *v, *(counters[k] for k in COUNTERS)]:
+        digest.update(t.cpu().contiguous().numpy().tobytes())
+    return digest.hexdigest()
+
+
+def adam_runs(t, launches, captured, what):
+    """The Adam kernel's runs on a Trainer's path: its launches outside a
+    graph, and two for each replay of a width's graph (two captured a
+    graph)."""
+    if captured != 2 * sum(t.captures.values()):
+        fail(f"adam was captured {captured} times in {t.captures} graph captures ({what})")
+    return launches + 2 * sum(t.replays.values())
+
+
+def check_adam():
+    """Phase 3b: the Adam kernel (``ops.adam.adam`` on card tensors)
+    against ``adam_plain`` on two copies of the ref41 model's leaves on the
+    card, fp32 and with a float64 epsilon: ADAM_STEPS steps, step
+    ADAM_NAN_STEP with a NaN gradient; parameters, moments and counters
+    equal bit for bit (SHA-256) after every step, two launches a step, the
+    NaN step skipped and counted.  Then, on the fp32 leaves, the device
+    time a step of both (torch.profiler; the kernel also from CUDA-graph
+    replays), the host time to enqueue a step, and the kernel's bound: the
+    update reads p, g, m and v and writes p, m and v, the check reads g, at
+    HBM_BYTES_PER_S.  Returns the phase's numbers."""
+    from vaegam_tpu_torch.models import VAEGAMConfig
+    from vaegam_tpu_torch.models.vaegam import init_model
+    from vaegam_tpu_torch.ops import adam as adam_mod
+    from vaegam_tpu_torch.utils.tree import tree_items
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    out = {}
+    for arm, x64 in (("fp32", False), ("x64_epsilon", True)):
+        params, _ = init_model(VAEGAMConfig(x64_epsilon=x64), XU_RANGES, None, seed=SEED,
+                               device="cuda")
+        leaves = [t.detach() for _, t in tree_items(params)]
+        kernel, plain = adam_sides(leaves)
+        work = adam_mod.workspace("cuda")
+        adam_mod.adam.launches = adam_mod.adam.captured = 0
+        equal = []
+        for step in range(ADAM_STEPS):
+            grads = [torch.randn(t.shape, generator=gen, device="cuda", dtype=t.dtype)
+                     * (1 + i % 5) for i, t in enumerate(leaves)]
+            if step == ADAM_NAN_STEP:
+                grads[7].view(-1)[3] = float("nan")
+            adam_mod.adam(kernel[0], grads, *kernel[1:], work, ADAM_LR)
+            adam_mod.adam_plain(plain[0], grads, *plain[1:], ADAM_LR)
+            torch.cuda.synchronize()
+            equal.append(adam_digest(kernel) == adam_digest(plain))
+        counters = {k: int(v) for k, v in kernel[3].items()}
+        launches = (adam_mod.adam.launches, adam_mod.adam.captured)
+        n = sum(t.numel() for t in leaves)
+        print(f"adam {arm}: {len(leaves)} leaves, {n} parameters "
+              f"({sorted({str(t.dtype) for t in leaves})}); kernel against plain over "
+              f"{ADAM_STEPS} steps (step {ADAM_NAN_STEP} NaN), SHA-256 equal {equal}; "
+              f"counters {counters}; launches {launches[0]}, captured {launches[1]}")
+        if not all(equal):
+            fail(f"the Adam kernel disagrees with adam_plain ({arm})")
+        if launches != (2 * ADAM_STEPS, 0):
+            fail(f"the Adam kernel did not launch twice a step ({arm})")
+        if counters != dict(count=ADAM_STEPS - 1, notfinite_count=0, last_finite=1,
+                            total_notfinite=1):
+            fail(f"the Adam kernel's counters are not the skipped step's ({arm})")
+        out[arm] = dict(leaves=len(leaves), params=n, steps_equal=equal, counters=counters)
+    # times on the fp32 leaves, a finite gradient
+    params, _ = init_model(VAEGAMConfig(), XU_RANGES, None, seed=SEED, device="cuda")
+    leaves = [t.detach() for _, t in tree_items(params)]
+    (kp, km, kv, kc), (pp, pm, pv, pc) = adam_sides(leaves)
+    grads = [torch.randn(t.shape, generator=gen, device="cuda") for t in leaves]
+    work = adam_mod.workspace("cuda")
+    fns = {"ms": lambda: adam_mod.adam(kp, grads, km, kv, kc, work, ADAM_LR),
+           "plain_ms": lambda: adam_mod.adam_plain(pp, grads, pm, pv, pc, ADAM_LR)}
+    timing = {}
+    for key, fn in fns.items():
+        iters = 50 if key == "ms" else 10
+        ms, names = device_ms(fn, iters=iters)
+        if not ms > 0:
+            fail(f"torch.profiler saw no device time for adam {key}")
+        host = host_ms(fn, iters=iters)
+        timing[key], timing[key.replace("ms", "host_ms")] = ms, host
+        print(f"adam {key}: {ms:.5f} ms of device time a step (torch.profiler; "
+              f"{len(names)} kernel(s): {', '.join(names)[:160]}); {host:.5f} ms of host "
+              "time to enqueue a step")
+        if key == "ms" and not (len(names) == 2 and all(
+                any(f in k for k in names) for f in ADAM_EVENTS)):
+            fail(f"the Adam kernel's profiled functions are {names}")
+    timing["graph_ms"] = graph_ms(fns["ms"])
+    nbytes = sum(8 * t.numel() * t.element_size() for t in leaves)
+    timing["bound_bytes"] = nbytes
+    timing["bound_ms"] = 1e3 * nbytes / HBM_BYTES_PER_S
+    print(f"adam: {timing['graph_ms']:.5f} ms a step from CUDA-graph replays; bound "
+          f"{timing['bound_ms']:.5f} ms ({nbytes} B at {HBM_BYTES_PER_S:.3g} B/s: 28 B a "
+          f"parameter for the update, 4 for the check), "
+          f"{100 * timing['bound_ms'] / timing['ms']:.1f}% of it (profiler)")
+    adam_mod.adam.launches = adam_mod.adam.captured = 0
+    return dict(out, **timing)
+
+
+# ---------------------------------------------------------------------------
 # main path
 # ---------------------------------------------------------------------------
 
@@ -495,6 +644,7 @@ def synthetic_data(config, n, seed):
 def drive_main_path(conv5_mod, profile_dir=None):
     from vaegam_tpu_torch.data import DeviceResidentLoader
     from vaegam_tpu_torch.models import VAEGAMConfig, forward
+    from vaegam_tpu_torch.ops.adam import adam
     from vaegam_tpu_torch.train import Trainer
     from vaegam_tpu_torch.utils.tree import tree_map
 
@@ -507,6 +657,7 @@ def drive_main_path(conv5_mod, profile_dir=None):
                                               shuffle=True, seed=SEED, device="cuda")
 
     conv5_mod.conv5.launches = 0
+    adam.launches = adam.captured = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     epoch_loss = trainer.train_epoch(loader)
@@ -524,6 +675,7 @@ def drive_main_path(conv5_mod, profile_dir=None):
         losses.append(loss)
     forwards = len(loader) + TIMED_STEPS
     launches = conv5_mod.conv5.launches
+    adam_launches, adam_captured = adam.launches, adam.captured
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
 
     losses = torch.stack(losses).cpu().numpy()
@@ -533,9 +685,12 @@ def drive_main_path(conv5_mod, profile_dir=None):
           f"{trainer.mvn_fallbacks}; peak memory {peak_gib:.2f} GiB")
     if not (np.isfinite(epoch_loss) and np.isfinite(losses).all()):
         fail("non-finite loss on the main path")
-    print(f"conv5 launches on the main path: {launches} for {forwards} forwards")
+    print(f"conv5 launches on the main path: {launches} for {forwards} forwards; adam "
+          f"{adam_launches} launches, {adam_captured} captured for {forwards} steps")
     if launches != forwards:
         fail("conv5 did not launch once per forward on the main path")
+    if (adam_launches, adam_captured) != (2 * forwards, 0):
+        fail("the Adam kernel did not launch twice a step on the main path")
 
     if profile_dir:
         profile_steps(trainer, loader, sels, profile_dir, "fp32")
@@ -573,7 +728,7 @@ def drive_main_path(conv5_mod, profile_dir=None):
     for k, m in aux["maps"].items():
         if tuple(m.shape) != (4, config.img_dim) or not torch.isfinite(m).all():
             fail(f"map {k} has shape {tuple(m.shape)} or non-finite values")
-    return launches, statistics.median(step_ms), step_ms, peak_gib
+    return launches, adam_launches, statistics.median(step_ms), step_ms, peak_gib
 
 
 def profile_steps(trainer, loader, sels, out_dir, tag):
@@ -631,8 +786,8 @@ def trainer_state(t):
 
 def profile_epoch(trainer, loader):
     """One epoch under torch.profiler: (conv5 kernel events, NCCL kernel
-    events, summed kernel ms, cudaStreamSynchronize calls and their host
-    ms, the epoch's host s)."""
+    events, the Adam kernel's events and their ms, summed kernel ms,
+    cudaStreamSynchronize calls and their host ms, the epoch's host s)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -644,8 +799,11 @@ def profile_epoch(trainer, loader):
     rows = prof.key_averages()
     kernels = kernel_events(prof)
     syncs = [e for e in rows if e.key == "cudaStreamSynchronize"]
+    adam = [e for e in kernels if any(f in e.key for f in ADAM_EVENTS)]
     return dict(conv5_events=sum(e.count for e in kernels if "conv5_kernel" in e.key),
                 nccl_events=sum(e.count for e in kernels if "nccl" in e.key.lower()),
+                adam_events=sum(e.count for e in adam),
+                adam_ms=sum(e.self_device_time_total for e in adam) / 1e3,
                 kernel_ms=sum(e.self_device_time_total for e in kernels) / 1e3,
                 stream_syncs=sum(e.count for e in syncs),
                 stream_sync_ms=sum(e.cpu_time_total for e in syncs) / 1e3,
@@ -664,10 +822,15 @@ def drive_epoch_scan(conv5_mod):
     both ways (epochs alternating, the first apart), the graphs' memory
     pool, one profiled epoch each (conv5's kernel events against the
     launches plus replays counted; the eager gather's stream syncs), and
-    the bf16 recipe replayed against eager bf16.  Returns (conv5 launches by
-    path, the phase's numbers)."""
+    the bf16 recipe replayed against eager bf16.  On every run the Adam
+    kernel must run twice a step (launches outside a graph plus two a
+    replay, two captured a graph; in the profiled epochs its counters
+    advance once a step, and its kernel events equal that count eager and
+    do not pass it replayed).  Returns (conv5 launches by path, the phase's
+    numbers, the Adam kernel's runs by path)."""
     from vaegam_tpu_torch.data import DeviceResidentLoader
     from vaegam_tpu_torch.models import VAEGAMConfig
+    from vaegam_tpu_torch.ops.adam import adam
     from vaegam_tpu_torch.tools.common import graph_pool_mib
     from vaegam_tpu_torch.train import Trainer
 
@@ -678,14 +841,21 @@ def drive_epoch_scan(conv5_mod):
         np.concatenate([vols, more_vols]), np.concatenate([covs, more_covs]),
         batch_size=BATCH, shuffle=True, seed=SEED, device="cuda")
     steps = -(-SCAN_VOLS // BATCH)
+    adam_by_path = {}
 
     def run(scan, epochs, cfg=config):
         t = Trainer(cfg, XU_RANGES, glm, seed=SEED, enable_tb=False, device="cuda",
                     epoch_scan=scan)
         torch.cuda.synchronize()
         conv5_mod.conv5.launches = conv5_mod.conv5.captured = 0
+        adam.launches = adam.captured = 0
         losses = [t.train_epoch(loader) for _ in range(epochs)]
         torch.cuda.synchronize()
+        tag = f"scan_{'replay' if scan else 'eager'}_{'det' if cfg is config else 'bf16'}"
+        adam_by_path[tag] = adam_runs(t, adam.launches, adam.captured, tag)
+        if adam_by_path[tag] != 2 * epochs * steps:
+            fail(f"the Adam kernel ran {adam_by_path[tag]} times in {epochs * steps} steps "
+                 f"({tag})")
         return t, losses, conv5_mod.conv5.launches, conv5_mod.conv5.captured
 
     def path_launches(t, launches, captured):
@@ -744,15 +914,19 @@ def drive_epoch_scan(conv5_mod):
                            device="cuda", epoch_scan=k == "replay")
                 for k in ("eager", "replay")}
     counts = {k: [0, 0] for k in trainers}
+    adam_counts = {k: [0, 0] for k in trainers}
     pool = None
     for epoch in range(SCAN_TIMED_EPOCHS):
         for k, t in trainers.items():
             torch.cuda.synchronize()
             conv5_mod.conv5.launches = conv5_mod.conv5.captured = 0
+            adam.launches = adam.captured = 0
             t.train_epoch(loader)
             torch.cuda.synchronize()
             counts[k][0] += conv5_mod.conv5.launches
             counts[k][1] += conv5_mod.conv5.captured
+            adam_counts[k][0] += adam.launches
+            adam_counts[k][1] += adam.captured
             if k == "replay" and epoch == 0:
                 pool = graph_pool_mib()
     timing = {}
@@ -764,22 +938,43 @@ def drive_epoch_scan(conv5_mod):
                          conv5_runs=path_launches(t, *counts[k]))
         if timing[k]["conv5_runs"] != SCAN_TIMED_EPOCHS * steps:
             fail(f"conv5 did not run once a forward in the timed {k} epochs")
+        adam_by_path[f"scan_{k}"] = adam_runs(t, *adam_counts[k], f"timed {k}")
+        if adam_by_path[f"scan_{k}"] != 2 * SCAN_TIMED_EPOCHS * steps:
+            fail(f"the Adam kernel did not run twice a step in the timed {k} epochs")
     # one profiled epoch each: conv5's kernel events against the count
     for k, t in trainers.items():
         replays0 = sum(t.replays.values())
         conv5_mod.conv5.launches = 0
+        adam.launches = adam.captured = 0
+        decided0 = int(t.opt_state["count"]) + int(t.opt_state["total_notfinite"])
         prof = profile_epoch(t, loader)
         counted = conv5_mod.conv5.launches + sum(t.replays.values()) - replays0
-        timing[k]["profiled"] = dict(prof, conv5_counted=counted)
+        adam_counted = adam.launches + 2 * (sum(t.replays.values()) - replays0)
+        # steps the kernel's check decided (applied or skipped), read from the
+        # counters it writes on the card
+        decided = int(t.opt_state["count"]) + int(t.opt_state["total_notfinite"]) - decided0
+        adam_step_ms = prof["adam_ms"] / max(prof["adam_events"] / 2, 1)
+        timing[k]["profiled"] = dict(prof, conv5_counted=counted, adam_counted=adam_counted,
+                                     adam_decided=decided, adam_ms_per_step=adam_step_ms)
         print(f"epoch_scan timing, {k}: epochs {[round(v, 4) for v in timing[k]['epoch_s']]} "
               f"s, steady {timing[k]['steady_epoch_s']:.4f} s/epoch, "
               f"{timing[k]['steady_step_ms']:.2f} ms/step; profiled epoch {prof['epoch_s']:.4f} "
               f"s, kernels {prof['kernel_ms']:.2f} ms, cudaStreamSynchronize "
               f"{prof['stream_syncs']} calls, {prof['stream_sync_ms']:.2f} ms of host time; "
-              f"conv5 kernel events {prof['conv5_events']}, counted {counted}")
+              f"conv5 kernel events {prof['conv5_events']}, counted {counted}; adam kernel "
+              f"events {prof['adam_events']}, counted {adam_counted}, steps decided "
+              f"{decided}, {adam_step_ms:.5f} ms a step")
         if prof["conv5_events"] != counted or counted != steps:
             fail(f"conv5's profiled kernel events ({prof['conv5_events']}) do not match "
                  f"its launches plus replays ({counted}) on the {k} path")
+        # under replays the profiler can keep part of a graph's records, so
+        # there the events may fall short of the count, never pass it
+        events_ok = prof["adam_events"] == adam_counted if k == "eager" else \
+            0 < prof["adam_events"] <= adam_counted
+        if adam.captured or adam_counted != 2 * steps or decided != steps or not events_ok:
+            fail(f"the Adam kernel did not run twice a step on the {k} path: "
+                 f"{prof['adam_events']} profiled events, {adam_counted} counted, "
+                 f"{adam.captured} captured, {decided} steps decided of {steps}")
         by_path[f"scan_{k}"] = timing[k]["conv5_runs"] + counted
     timing["graph_pool_mib"] = pool
     timing["captures"], timing["replays"] = trainers["replay"].captures, \
@@ -806,7 +1001,8 @@ def drive_epoch_scan(conv5_mod):
     by_path["scan_replay_bf16"] = b_replay_launches
     out["bf16"] = dict(eager_losses=b_eager_losses, replay_losses=b_replay_losses,
                        max_rel=rel, captures=b_replay.captures, replays=b_replay.replays)
-    return by_path, out
+    print(f"epoch_scan: the Adam kernel's runs by path {adam_by_path} (two a step)")
+    return by_path, out, adam_by_path
 
 
 # ---------------------------------------------------------------------------
@@ -1451,8 +1647,10 @@ def drive_float64(conv5_mod):
     off) takes one forward, backward and Adam step on the card from a host
     batch of 32, and the same step on the CPU with the same weights and
     noise; then F64_TIMED_STEPS timed steps on the card.  conv5 must not
-    launch.  Returns (conv5 launches, the phase's numbers)."""
+    launch; Adam's kernel twice a card step.  Returns (conv5 launches, the
+    phase's numbers)."""
     from vaegam_tpu_torch.models import VAEGAMConfig
+    from vaegam_tpu_torch.ops.adam import adam
     from vaegam_tpu_torch.models.vaegam import draw_noise
     from vaegam_tpu_torch.train import Trainer
     from vaegam_tpu_torch.utils.tree import tree_items
@@ -1463,6 +1661,7 @@ def drive_float64(conv5_mod):
     noise = draw_noise(torch.Generator().manual_seed(SEED), BATCH, config, "cpu")
     torch.cuda.synchronize()
     conv5_mod.conv5.launches = 0
+    adam.launches = adam.captured = 0
     out = {}
     for dev in ("cuda", "cpu"):
         t = Trainer(config, XU_RANGES, glm, seed=SEED, enable_tb=False, device=dev)
@@ -1487,20 +1686,25 @@ def drive_float64(conv5_mod):
         torch.cuda.synchronize()
         step_ms.append(1e3 * (time.perf_counter() - t0))
     launches = conv5_mod.conv5.launches
+    adam_launches = adam.launches
     loss_rel = abs(loss_card - loss_cpu) / abs(loss_cpu)
     print(f"float64 step at B={BATCH}: loss card {loss_card!r} cpu {loss_cpu!r} "
           f"(rel {loss_rel:.3e}, bound {F64_LOSS_RTOL}); gradients (0.1 x: the first "
           f"Adam moment) max {grad_err:.3e} of each leaf's largest, at {grad_leaf} (bound "
           f"{F64_GRAD_SHARE}); parameter dtypes {sorted(dtypes)}; first step "
           f"{first_s:.2f} s on the card, {cpu_s:.2f} s on the CPU; steady step ms "
-          f"{[round(v, 2) for v in step_ms]}; conv5 launches {launches}")
+          f"{[round(v, 2) for v in step_ms]}; conv5 launches {launches}; adam launches "
+          f"{adam_launches} for {1 + F64_TIMED_STEPS} card steps")
     if dtypes != {"torch.float64"} or not np.isfinite([loss_card, float(loss)]).all():
         fail("the float64 step is not float64 throughout or not finite")
     if loss_rel > F64_LOSS_RTOL or grad_err > F64_GRAD_SHARE:
         fail("the float64 step on the card disagrees with the CPU's")
     if launches != 0:
         fail("the float32 conv5 kernel launched on the float64 path")
+    if (adam_launches, adam.captured) != (2 * (1 + F64_TIMED_STEPS), 0):
+        fail("the Adam kernel did not launch twice a card step on the float64 path")
     return launches, dict(loss_card=loss_card, loss_cpu=loss_cpu, loss_rel=loss_rel,
+                          adam_launches=adam_launches,
                           grad_err=grad_err, first_step_s=first_s, cpu_step_s=cpu_s,
                           step_ms=step_ms, step_ms_median=statistics.median(step_ms))
 
@@ -1543,7 +1747,7 @@ def drive_oracle(conv5_mod, work: Path):
     Its own output goes to a log; its JSON line and the tail of the log are
     printed.  A result that is not finite or a wrong launch count fails at
     once; a run that did not recover is returned as the failure message,
-    which main() raises after phase 9 so that the later phases still run
+    which main() raises after phase 12's numbers so that the later phases run
     and report.  Returns (conv5 launches, the tool's result, the phase's
     seconds, the failure message or None)."""
     argv = ["--work_dir", str(work / "ctl"), "--epochs", str(ORACLE_EPOCHS)]
@@ -2967,10 +3171,17 @@ def main(argv=None) -> int:
     if log.exists():
         print(log.read_text().strip())
     count_hmma(lib)
+    t0 = time.perf_counter()
+    adam_lib = build.build("adam")
+    print(f"built {adam_lib.name} in {time.perf_counter() - t0:.1f} s")
+    log = adam_lib.with_name(adam_lib.name + ".log")
+    if log.exists():
+        print(log.read_text().strip())
     lap("1_2_card_build")
 
     # 3. kernels vs plain versions
     err, timing = check_conv5(conv5_mod)
+    adam_check = check_adam()
     lap("3_kernels")
 
     # 4-7. the train step; the train CLI on a NIfTI study, and its output
@@ -2979,8 +3190,8 @@ def main(argv=None) -> int:
     study_root = Path(tempfile.mkdtemp(prefix="vaegam_study_"))
     try:
         with Conv5Shapes(conv5_mod) as shapes:
-            step_launches, step_ms, all_ms, peak_gib = drive_main_path(conv5_mod,
-                                                                       args.profile)
+            step_launches, step_adam, step_ms, all_ms, peak_gib = drive_main_path(
+                conv5_mod, args.profile)
             lap("4_step")
             f64_launches, f64 = drive_float64(conv5_mod)
             lap("4b_float64")
@@ -2991,7 +3202,7 @@ def main(argv=None) -> int:
             lap("7_oracle")
             # after phase 7, which so finds cuDNN's algorithm cache as it
             # did before phase 4c existed (4c is the first to search B = 2)
-            scan_launches, scan = drive_epoch_scan(conv5_mod)
+            scan_launches, scan, scan_adam = drive_epoch_scan(conv5_mod)
             lap("4c_epoch_scan")
             oracle_scan_launches, scan["oracle"] = drive_oracle_scan(conv5_mod, work)
             lap("7b_oracle_scan")
@@ -3033,10 +3244,8 @@ def main(argv=None) -> int:
           f"in 11a: {not unchecked}")
     if unchecked:
         fail(f"conv5's one-pass path launched at shapes 11a did not check: {sorted(unchecked)}")
-    if oracle_failed:
-        fail(oracle_failed)
 
-    # 12. numbers
+    # 12. numbers (before phase 7's verdict, so that a failed draw still reports them)
     print(json.dumps({"phase10": phase10}))
     print(json.dumps({"tpu_products": phase11}))
     one = phase11["conv5_one_pass"]
@@ -3062,7 +3271,23 @@ def main(argv=None) -> int:
             "mni_ms", "mni_library_ms", "mni_bound_ms", "mni_split_ms", "hmma_one_pass",
             "hmma_split")},
     }
-    print(json.dumps({"kernels": [kernel]}))
+    eager_prof = scan["default"]["eager"]["profiled"]
+    adam_kernel = {
+        "name": "adam", "route": "cuda",
+        "source": "vaegam_tpu_torch/ops/csrc/adam.cu",
+        "replaces": "none: the JAX package's optax update, which XLA fuses into its step",
+        "launches": step_adam,
+        "launches_by_path": dict(train_step=step_adam, float64_step=f64["adam_launches"],
+                                 **scan_adam),
+        "steps_equal": {arm: adam_check[arm]["steps_equal"] for arm in ("fp32", "x64_epsilon")},
+        "params": adam_check["fp32"]["params"], "leaves": adam_check["fp32"]["leaves"],
+        "ms": adam_check["ms"], "plain_ms": adam_check["plain_ms"],
+        "graph_ms": adam_check["graph_ms"], "host_ms": adam_check["host_ms"],
+        "plain_host_ms": adam_check["plain_host_ms"], "bound_ms": adam_check["bound_ms"],
+        "bound_by": "bytes", "bound_bytes": adam_check["bound_bytes"],
+        "in_step_ms": eager_prof["adam_ms_per_step"],
+    }
+    print(json.dumps({"kernels": [kernel, adam_kernel]}))
     print(json.dumps({"step_ms_median": step_ms, "vols_per_s": BATCH * 1e3 / step_ms,
                       "step_ms_min": min(all_ms), "step_ms_max": max(all_ms),
                       "batch": BATCH, "steps": TIMED_STEPS, "peak_mem_gib": peak_gib}))
@@ -3075,6 +3300,8 @@ def main(argv=None) -> int:
     print(json.dumps({"beta_maps": betas}))
     print(json.dumps({"data_parallel": dp}))
     print(smi)
+    if oracle_failed:
+        fail(oracle_failed)
     # 13. the last line
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,13 +15,15 @@ vae_reg_GP.py:415-450,691-715):
     beta and map figures of one maps forward.
 
 The optimizer is written out in optax's shape rather than taken from
-``torch.optim.Adam``: the skip of a non-finite step is a ``torch.where`` on
-the device, so a step needs no host sync.  On a non-finite gradient no
-parameter, Adam moment or step count changes.  Device-resident loaders feed
-gather-fused steps (``iter_index_batches`` + ``gather``); host loaders'
-numpy batches go to the card from pinned memory, and the prefetch loader's
-device tensors pass through.  A float64 model trains from host batches
-only (the cache's gather is float32, as in the JAX package).
+``torch.optim.Adam`` (``ops/adam.py``: on the card one hand-written kernel
+in two launches a step, on the CPU its plain torch version): the skip of a
+non-finite step is decided on the device, so a step needs no host sync.
+On a non-finite gradient no parameter, Adam moment or step count changes.
+Device-resident loaders feed gather-fused steps (``iter_index_batches`` +
+``gather``); host loaders' numpy batches go to the card from pinned memory,
+and the prefetch loader's device tensors pass through.  A float64 model
+trains from host batches only (the cache's gather is float32, as in the JAX
+package).
 
 ``epoch_scan`` is the counterpart of the JAX Trainer's one-dispatch scan
 over a run of gather-fused steps (``_build_gather_train_scan``): on the
@@ -60,6 +62,7 @@ import torch
 from .._device import configure_cuda_backends, resolve_device
 from ..models.vaegam import (COVARIATE_KEYS, VAEGAMConfig, draw_noise, forward,
                              init_model, resolve_qu_S)
+from ..ops.adam import adam, workspace
 from ..parallel.mesh import (all_gather_rows, all_reduce_grads, barrier, batch_rows,
                              is_main_process, put_replicated)
 from ..utils import prng, spans, tb
@@ -67,9 +70,6 @@ from ..utils.jax_params import params_from_jax, params_to_jax
 from ..utils.tree import tree_items, tree_map
 from .checkpoint import (checkpoint_filename, flatten, load_checkpoint,
                          save_checkpoint)
-
-_B1, _B2, _EPS = 0.9, 0.999, 1e-8  # optax.adam defaults (eps_root 0)
-MAX_CONSECUTIVE_ERRORS = 100000    # as the JAX Trainer's apply_if_finite
 
 
 class Trainer:
@@ -196,7 +196,8 @@ class Trainer:
         self._leaves = [t for _, t in tree_items(self.params)]
 
     def _reset_opt_state(self, mu=None, nu=None, counters=None) -> None:
-        """Fresh Adam moments and counters, or the given ones (port layout)."""
+        """Fresh Adam moments and counters, or the given ones (port layout),
+        and on the card a fresh workspace for the Adam kernel."""
         self._drop_graphs()
 
         def moment(m):
@@ -220,6 +221,7 @@ class Trainer:
         }
         self._mu = [t for _, t in tree_items(self.opt_state["mu"])]
         self._nu = [t for _, t in tree_items(self.opt_state["nu"])]
+        self._adam_work = workspace(self.device) if self.device.type == "cuda" else None
 
     def _replicate(self) -> None:
         """Rank 0's parameters and Adam moments on every rank."""
@@ -232,45 +234,15 @@ class Trainer:
         self._drop_graphs()
 
     # ------------------------------------------------------------ optimizer
-    @torch.no_grad()
     def _apply_gradients(self, grads) -> None:
-        """apply_if_finite(chain(clip_by_global_norm?, adam(lr))) in place.
+        """apply_if_finite(chain(clip_by_global_norm?, adam(lr))) in place
+        (``ops.adam``: the CUDA kernel on the card, the plain version on
+        the CPU).
 
         Every parameter, moment and counter keeps its storage: a captured
         step (``epoch_scan``) reads and writes them at fixed addresses."""
-        st = self.opt_state
-        if self.skip_nonfinite_updates:
-            finite = torch.stack([torch.isfinite(g).all() for g in grads]).all()
-        else:
-            finite = torch.ones((), dtype=torch.bool, device=self.device)
-        notfinite_count = torch.where(finite, torch.zeros_like(st["notfinite_count"]),
-                                      st["notfinite_count"] + 1)
-        apply = finite | (notfinite_count > MAX_CONSECUTIVE_ERRORS)
-        if self.grad_clip and self.grad_clip > 0:
-            g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
-            trigger = g_norm < self.grad_clip
-            grads = [torch.where(trigger, g, (g / g_norm) * self.grad_clip)
-                     for g in grads]
-        count_inc = st["count"] + 1
-        # bias corrections in each parameter's precision (a float64 epsilon
-        # under x64_epsilon), as optax computes them
-        bcs = {}
-        for dt in {p.dtype for p in self._leaves}:
-            c = count_inc.to(dt)
-            bcs[dt] = (1.0 - torch.pow(torch.full_like(c, _B1), c),
-                       1.0 - torch.pow(torch.full_like(c, _B2), c))
-        for p, g, m, v in zip(self._leaves, grads, self._mu, self._nu):
-            bc1, bc2 = bcs[p.dtype]
-            m_new = (1 - _B1) * g + _B1 * m
-            v_new = (1 - _B2) * (g * g) + _B2 * v
-            upd = -self.lr * ((m_new / bc1) / (torch.sqrt(v_new / bc2) + _EPS))
-            p.copy_(torch.where(apply, p + upd, p))
-            m.copy_(torch.where(apply, m_new, m))
-            v.copy_(torch.where(apply, v_new, v))
-        st["count"].copy_(torch.where(apply, count_inc, st["count"]))
-        st["notfinite_count"].copy_(notfinite_count)
-        st["last_finite"].copy_(finite)
-        st["total_notfinite"].add_((~finite).to(torch.int32))
+        adam(self._leaves, grads, self._mu, self._nu, self.opt_state, self._adam_work,
+             self.lr, self.grad_clip, self.skip_nonfinite_updates)
 
     # ----------------------------------------------------------------- step
     def train_step(self, covariates, x, noise=None):

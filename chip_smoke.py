@@ -26,7 +26,9 @@ non-zero):
      enqueue one call beside it;
  3b. the Adam kernel (two launches a step) against adam_plain on two
      copies of the ref41 model's 63 leaves on the card, fp32 and with a
-     float64 epsilon, over ADAM_STEPS steps, one with a NaN gradient:
+     float64 epsilon, and of the MNI grid's (portbench's mni91-train-eager,
+     91x109x91, ~52 M parameters), over ADAM_STEPS steps, one with a NaN
+     gradient:
      parameters, moments and counters bit for bit (SHA-256) after every
      step, two launches a step, the NaN step skipped and counted; the
      device time a step of both (torch.profiler; the kernel also from
@@ -372,6 +374,10 @@ CONV5_SHAPES = {  # (B, Ci, D, H, W, Co)
     "thin-b8": (8, 4, 3, 4, 3, 4),
     # mni_mesh_dryrun's ranks: one row each
     "mni-dp": (1, 16, 20, 25, 20, 16),
+    # portbench's mni91-train-eager: batch 32 over 98 volumes, and its last
+    # batch of 2
+    "mni-b32": (32, 16, 20, 25, 20, 16),
+    "mni-tail32": (98 % 32, 16, 20, 25, 20, 16),
 }
 TIMED_CONV5_SHAPES = ("main", "mni")
 
@@ -502,6 +508,7 @@ def count_hmma(lib) -> int:
 
 ADAM_STEPS, ADAM_NAN_STEP, ADAM_LR = 6, 3, 1e-3   # the Trainer's lr
 ADAM_EVENTS = ("adam_check", "adam_apply")         # the kernel's two functions
+ADAM_MNI_SHAPE = (91, 109, 91)                     # portbench's vaegam-mni91-fp32
 
 
 def adam_sides(leaves):
@@ -545,7 +552,9 @@ def adam_runs(t, launches, captured, what):
 def check_adam():
     """Phase 3b: the Adam kernel (``ops.adam.adam`` on card tensors)
     against ``adam_plain`` on two copies of the ref41 model's leaves on the
-    card, fp32 and with a float64 epsilon: ADAM_STEPS steps, step
+    card, fp32 and with a float64 epsilon, and of the MNI grid's fp32
+    leaves (ADAM_MNI_SHAPE: other tile counts, block counts and ticket
+    orders than ref41's): ADAM_STEPS steps, step
     ADAM_NAN_STEP with a NaN gradient; parameters, moments and counters
     equal bit for bit (SHA-256) after every step, two launches a step, the
     NaN step skipped and counted.  Then, on the fp32 leaves, the device
@@ -561,9 +570,10 @@ def check_adam():
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     out = {}
-    for arm, x64 in (("fp32", False), ("x64_epsilon", True)):
-        params, _ = init_model(VAEGAMConfig(x64_epsilon=x64), XU_RANGES, None, seed=SEED,
-                               device="cuda")
+    arms = (("fp32", VAEGAMConfig()), ("x64_epsilon", VAEGAMConfig(x64_epsilon=True)),
+            ("mni91", VAEGAMConfig(img_shape=ADAM_MNI_SHAPE)))
+    for arm, config in arms:
+        params, _ = init_model(config, XU_RANGES, None, seed=SEED, device="cuda")
         leaves = [t.detach() for _, t in tree_items(params)]
         kernel, plain = adam_sides(leaves)
         work = adam_mod.workspace("cuda")
@@ -593,6 +603,7 @@ def check_adam():
                             total_notfinite=1):
             fail(f"the Adam kernel's counters are not the skipped step's ({arm})")
         out[arm] = dict(leaves=len(leaves), params=n, steps_equal=equal, counters=counters)
+        del params, leaves, kernel, plain, grads
     # times on the fp32 leaves, a finite gradient
     params, _ = init_model(VAEGAMConfig(), XU_RANGES, None, seed=SEED, device="cuda")
     leaves = [t.detach() for _, t in tree_items(params)]
@@ -3279,8 +3290,10 @@ def main(argv=None) -> int:
         "launches": step_adam,
         "launches_by_path": dict(train_step=step_adam, float64_step=f64["adam_launches"],
                                  **scan_adam),
-        "steps_equal": {arm: adam_check[arm]["steps_equal"] for arm in ("fp32", "x64_epsilon")},
+        "steps_equal": {arm: adam_check[arm]["steps_equal"]
+                        for arm in ("fp32", "x64_epsilon", "mni91")},
         "params": adam_check["fp32"]["params"], "leaves": adam_check["fp32"]["leaves"],
+        "mni91_params": adam_check["mni91"]["params"],
         "ms": adam_check["ms"], "plain_ms": adam_check["plain_ms"],
         "graph_ms": adam_check["graph_ms"], "host_ms": adam_check["host_ms"],
         "plain_host_ms": adam_check["plain_host_ms"], "bound_ms": adam_check["bound_ms"],

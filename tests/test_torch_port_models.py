@@ -37,7 +37,7 @@ from vaegam_tpu_torch.utils.jax_params import params_from_jax
 from vaegam_tpu_torch.utils.tree import tree_items, tree_map
 
 from torch_port_common import (
-    FULL, THIN, f64_jax, f64_port, jax_float64, jax_noise, make_batch,
+    FULL, MNI_ROUNDING, THIN, f64_jax, f64_port, jax_float64, jax_noise, make_batch,
     make_model, to_np, torch_tensors,
 )
 
@@ -413,14 +413,16 @@ def test_entry_points_need_a_card_or_cpu():
 
 @pytest.mark.parametrize("deterministic", [True, False], ids=["det", "noise"])
 @pytest.mark.parametrize("cfg_kw,batch", [(THIN, 4), (FULL, 2),
-                                          (dict(THIN, **ORACLE_FLAGS), 4)],
-                         ids=["thin", "full", "thin-cholesky-oracle"])
+                                          (dict(THIN, **ORACLE_FLAGS), 4),
+                                          (dict(THIN, img_shape=MNI_ROUNDING), 2)],
+                         ids=["thin", "full", "thin-cholesky-oracle", "thin-mni-rounding"])
 def test_forward_parity(cfg_kw, batch, deterministic):
     """Thin model (21x25x21 grid: exercises the decoder crop) at B=4 and the
     reference grid at B=2; deterministic and with JAX-drawn noise; the thin
     model also at the oracle's flags: the Cholesky parameterization of
     qu_S (qu_S_raw's gradient is one of the leaves), joint decoder norm
-    statistics and no HRF on the task gain.
+    statistics and no HRF on the task gain; and at B=2 on MNI_ROUNDING,
+    the smallest grid that rounds as the MNI152 2 mm grid does.
 
     1. fp32, the packages as they run: tot_loss, elbo, gp_kl, glm_reg at
        rtol 1e-4.

@@ -151,7 +151,9 @@ CHIP_SHAPES = {"main": (32, 16, 8, 10, 6, 16), "odd-batch": (3, 16, 8, 10, 6, 16
                "hw30": (4, 4, 5, 6, 5, 4),
                # the oracle's last batch: 98 volumes (1 subject) and 294 (3
                # subjects) at batch 32
-               "oracle-tail": (2, 16, 8, 10, 6, 16), "gate3-tail": (6, 16, 8, 10, 6, 16)}
+               "oracle-tail": (2, 16, 8, 10, 6, 16), "gate3-tail": (6, 16, 8, 10, 6, 16),
+               # the MNI benchmark cell's batch 32 and its last batch of 98 volumes
+               "mni-b32": (32, 16, 20, 25, 20, 16), "mni-tail32": (2, 16, 20, 25, 20, 16)}
 
 
 def _tf32(a):

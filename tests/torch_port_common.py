@@ -33,6 +33,9 @@ from vaegam_tpu_torch.models import VAEGAMConfig as PortConfig
 from vaegam_tpu_torch.utils.jax_params import params_from_jax
 
 THIN = dict(nf=2, num_latents=8, img_shape=(21, 25, 21))
+# the smallest grid whose encoder floors and decoder crop (2 on D) are the
+# MNI152 2 mm grid's, 91x109x91, on every axis (test_torch_port_mni_grid.py)
+MNI_ROUNDING = (23, 21, 23)
 FULL = dict()
 # wide inducing grid: well-separated inducing points keep Kuu well
 # conditioned (tests/test_reference_parity.py:41-48)

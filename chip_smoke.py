@@ -11,7 +11,7 @@ read after phase 12's numbers, so that a run whose oracle did not
 recover still drives and reports every later phase before it exits
 non-zero):
   1. the card: name and power limit (nvidia-smi), TF32 off;
-  2. build every CUDA kernel of the main path (conv5, adam) from this
+  2. build every CUDA kernel of the main path (conv5, adam, convt5) from this
      checkout's sources;
   2b. the tensor-core instructions (HMMA) in the built conv5 library;
   3. each kernel against its plain PyTorch version on the card, forward and
@@ -24,6 +24,13 @@ non-zero):
      device time of conv5 and F.conv3d at the main and MNI shapes, with
      the CUDA-event time of 200 back-to-back calls and the host time to
      enqueue one call beside it;
+ 3c. the convt5 kernels (the decoder's output layer: a forward, a fused
+     gradient pass and its reduction) against their plain version in
+     float64 at the cells' shapes (ref41 and MNI, 288 decoder rows and their
+     tails) and a few others: y, gx, gw and gb within 1e-3 of each one's
+     largest entry and at most 3x the stock op's worst, two runs bit for
+     bit; their device time and the stock F.conv_transpose3d's against the
+     bytes bound at ref41 and MNI;
  3b. the Adam kernel (two launches a step) against adam_plain on two
      copies of the ref41 model's 63 leaves on the card, fp32 and with a
      float64 epsilon, and of the MNI grid's (portbench's mni91-train-eager,
@@ -39,7 +46,8 @@ non-zero):
      statistics, GLM maps on, conv5 kernel on) trains one epoch over 128
      synthetic volumes held on the card (batch 32, 4 steps), then 20 timed
      steps; every loss must be finite, conv5 must have launched once per
-     forward and the Adam kernel twice a step.  One deterministic B=4 forward on the card must match the
+     forward, convt5's kernels three times a step and the Adam kernel twice
+     a step.  One deterministic B=4 forward on the card must match the
      same model's CPU forward (plain kernels), on well-conditioned inducing
      grids: tot_loss rtol 1e-4;
  4b. a float64 model at the same width (JAX's partial float64: norm
@@ -199,7 +207,8 @@ non-zero):
  12. one JSON line with the seconds of each phase and of the whole run
      (after the imports) beside the card, then one JSON line with phase
      10's numbers, one with phase 11's, one
-     with the kernels' numbers (conv5's launches by path,
+     with the kernels' numbers (conv5's launches by path, convt5's runs by
+     path and its phase 3c numbers,
      the epoch_scan paths' as launches plus replays, the ranks'; adam's
      runs by path of phases 4-4c, its phase 3b times and bound, its device
      ms a step in 4c's profiled eager epoch), one with
@@ -503,6 +512,160 @@ def count_hmma(lib) -> int:
 
 
 # ---------------------------------------------------------------------------
+# convt5
+# ---------------------------------------------------------------------------
+
+CONVT5_SHAPES = {  # (B, Ci, D, H, W): convt5's input, 9 decoder rows a volume
+    # the cells' train steps: 41x49x35 at batch 32 and the study's last batch
+    # of 20, the MNI grid 91x109x91 at batch 32 and its last batch of 2
+    "ref41": (9 * BATCH, 8, 39, 47, 33),
+    "ref41-tail": (9 * (N_STUDY % BATCH), 8, 39, 47, 33),
+    "mni": (9 * BATCH, 8, 91, 107, 89),
+    "mni-tail": (9 * (98 % BATCH), 8, 91, 107, 89),
+    # the thin model (nf 2, 21x25x21), and rows of a multiple of 4 words:
+    # y's (W + 2) and gx's (W) 16-byte stores
+    "thin": (72, 2, 19, 23, 21),
+    "vec-y": (3, 4, 5, 6, 6),
+    "vec-gx": (3, 3, 4, 7, 8),
+}
+TIMED_CONVT5_SHAPES = ("ref41", "mni")
+CONVT5_SHARE = 1e-3   # ROADMAP F4: each output within 1e-3 of its largest entry
+
+
+def convt5_bounds(shape):
+    """(forward, backward) bytes bounds in ms (the forward reads x, writes y;
+    the fused backward reads gy and x, writes gx; each tensor once) and the
+    products' time at the fp32 FMA rate (2 * 216 FLOPs an output and an
+    input voxel, three passes)."""
+    bsz, ci, d, h, wd = shape
+    nx, ny = bsz * ci * d * h * wd, bsz * (d + 2) * (h + 2) * (wd + 2)
+    fwd, bwd = 4.0 * (nx + ny) / HBM_BYTES_PER_S, 4.0 * (ny + 2 * nx) / HBM_BYTES_PER_S
+    return 1e3 * fwd, 1e3 * bwd, 1e3 * 2.0 * 27 * nx * 3 / FP32_FLOPS
+
+
+def max_share(got, want, chunk=8):
+    """max |got - want| over max |want|, in float64, `chunk` rows at a time
+    (an MNI gx in float64 is 16 GB)."""
+    err = big = 0.0
+    for i in range(0, want.shape[0], chunk):
+        w = want[i:i + chunk].double()
+        err = max(err, float((got[i:i + chunk].double() - w).abs().max()))
+        big = max(big, float(w.abs().max()))
+    return err / max(big, 1e-30)
+
+
+def check_convt5(timed=True):
+    """Phase 3c: the convt5 kernels (``ops.convt5``) against their plain
+    version in float64 at CONVT5_SHAPES: y, gx, gw and gb each within
+    CONVT5_SHARE of its largest entry, the worst at most 3x the worst of the
+    stock op (F.conv_transpose3d and its autograd, fp32, TF32 off), and two
+    runs bit for bit equal; three launches a forward and backward.  Then,
+    at TIMED_CONVT5_SHAPES, the device time of the forward and of the
+    gradients (CUDA events; torch.profiler beside), of the stock op as the
+    yardstick (``library_ms``: the port never calls it for an fp32 convt5)
+    and, at ref41, of the plain version, against the bytes bound.  Returns
+    the phase's numbers."""
+    import torch.nn.functional as F
+
+    from vaegam_tpu_torch.ops import convt5 as mod
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    out = {}
+    for name, shape in CONVT5_SHAPES.items():
+        ci = shape[1]
+        x = torch.randn(shape, generator=gen, device="cuda")
+        bound = 1.0 / np.sqrt(27)  # torch-default init bound (fan_in = Co * 27)
+        w = (torch.rand((ci, 1, 3, 3, 3), generator=gen, device="cuda") * 2 - 1) * bound
+        b = (torch.rand((1,), generator=gen, device="cuda") * 2 - 1) * bound
+        mod.convt5.launches = mod.convt5.captured = 0
+        y = mod.convt5_cuda(x, w, b)
+        gy = torch.randn(y.shape, generator=gen, device="cuda")
+        kern = (y, *mod.convt5_grads_cuda(x, w, gy))
+        again = (mod.convt5_cuda(x, w, b), *mod.convt5_grads_cuda(x, w, gy))
+        torch.cuda.synchronize()
+        launches = mod.convt5.launches
+        same = all(torch.equal(a, c) for a, c in zip(kern, again))
+        del again
+        xs, ws, bs = (t.clone().requires_grad_(True) for t in (x, w, b))
+        ys = F.conv_transpose3d(xs, ws, bs)
+        stock = (ys.detach(), *torch.autograd.grad(ys, (xs, ws, bs), gy))
+        del xs, ws, bs, ys
+        x64, w64, gy64 = x.double(), w.double(), gy.double()
+        names = ("y", "gx", "gw", "gb")
+        ref = mod.convt5_plain(x64, w64, b.double())
+        shares = {"y": (max_share(kern[0], ref), max_share(stock[0], ref))}
+        del ref
+        for key, k, st, r in zip(names[1:], kern[1:], stock[1:],
+                                 mod.convt5_plain_grads(x64, w64, gy64)):
+            shares[key] = (max_share(k, r), max_share(st, r))
+        del x64, gy64, kern, stock
+        worst, stock_worst = (max(v[i] for v in shares.values()) for i in (0, 1))
+        p = mod.plan(*shape)
+        print(f"convt5 {name} {shape}: kernel / stock shares of the largest entry "
+              + ", ".join(f"{k} {a:.2e} / {c:.2e}" for k, (a, c) in shares.items())
+              + f"; two runs bit for bit {same}; {launches} launches; plan fx {p.fx} "
+              f"fty {p.fty} ({p.fblocks} blocks), bx {p.bx} bty {p.bty} ({p.bblocks} blocks)",
+              flush=True)
+        if not (worst <= CONVT5_SHARE and worst <= 3 * stock_worst):
+            fail(f"convt5 kernels disagree with the plain version at {name}: worst "
+                 f"{worst:.3e}, the stock op's {stock_worst:.3e}")
+        if not same or launches != 6:
+            fail(f"convt5 at {name}: two runs equal {same}, {launches} launches (6 expected)")
+        out[name] = dict(shares={k: v[0] for k, v in shares.items()},
+                         stock_shares={k: v[1] for k, v in shares.items()}, same=same)
+        if timed and name in TIMED_CONVT5_SHAPES:
+            out[name].update(time_convt5(mod, x, w, b, gy, name == "ref41"))
+        del x, w, b, gy, y
+        torch.cuda.empty_cache()
+    mod.convt5.launches = mod.convt5.captured = 0
+    return out
+
+
+def time_convt5(mod, x, w, b, gy, plain):
+    """Device ms a call of the forward, the gradients and the stock op, and
+    the bound; the plain version's too if `plain`.  The times are CUDA
+    events over back-to-back calls (each call is milliseconds of kernels, so
+    the launches hide behind them); torch.profiler's sum of kernel times is
+    kept beside them with the kernels' names; it reads low where the
+    profiler kept only part of its window (on an H100 it has read the MNI
+    forward faster than its bytes bound allows)."""
+    import torch.nn.functional as F
+
+    iters = 20 if x.numel() < 1e9 else 5
+    xs, ws, bs = (t.clone().requires_grad_(True) for t in (x, w, b))
+
+    def stock():
+        return torch.autograd.grad(F.conv_transpose3d(xs, ws, bs), (xs, ws, bs), gy)
+
+    fns = {"fwd_ms": lambda: mod.convt5_cuda(x, w, b),
+           "bwd_ms": lambda: mod.convt5_grads_cuda(x, w, gy),
+           "library_fwd_ms": lambda: F.conv_transpose3d(x, w, b),
+           "library_ms": stock}
+    if plain:
+        fns["plain_ms"] = lambda: (mod.convt5_plain(x, w, b),
+                                   mod.convt5_plain_grads(x, w, gy))
+    t = {}
+    for key, fn in fns.items():
+        n = 3 if key == "plain_ms" else iters
+        t[key] = events_ms(fn, iters=n, warmup=2)
+        prof_ms, names = device_ms(fn, iters=n, warmup=1)
+        t[key.replace("_ms", "_profiler_ms")] = prof_ms
+        print(f"convt5 {tuple(x.shape)} {key}: {t[key]:.4f} ms a call (CUDA events); "
+              f"torch.profiler {prof_ms:.4f} ({len(set(names))} kernel(s): "
+              f"{', '.join(sorted(set(names)))[:200]})", flush=True)
+    fwd_b, bwd_b, fma = convt5_bounds(tuple(x.shape))
+    t["ms"] = t["fwd_ms"] + t["bwd_ms"]
+    t.update(bound_fwd_ms=fwd_b, bound_bwd_ms=bwd_b, bound_ms=fwd_b + bwd_b, fma_ms=fma,
+             roofline_pct=100 * (fwd_b + bwd_b) / t["ms"])
+    print(f"convt5 {tuple(x.shape)}: kernels {t['ms']:.4f} ms (forward {t['fwd_ms']:.4f}, "
+          f"gradients {t['bwd_ms']:.4f}) against a bytes bound of {fwd_b + bwd_b:.4f} ms "
+          f"({fwd_b:.4f} + {bwd_b:.4f}): {t['roofline_pct']:.1f}%; products at the fp32 FMA "
+          f"rate {fma:.4f} ms; the stock op {t['library_ms']:.4f} ms", flush=True)
+    return t
+
+
+# ---------------------------------------------------------------------------
 # adam
 # ---------------------------------------------------------------------------
 
@@ -538,6 +701,22 @@ def adam_digest(side) -> str:
     for t in [*p, *m, *v, *(counters[k] for k in COUNTERS)]:
         digest.update(t.cpu().contiguous().numpy().tobytes())
     return digest.hexdigest()
+
+
+def convt5_runs(t, steps, what):
+    """The convt5 kernels' runs on a Trainer's path (launches outside a
+    graph, and three for each replay of a width's graph, three captured a
+    graph), which must be three a step; kept in CONVT5_RUNS[what]."""
+    from vaegam_tpu_torch.ops.convt5 import convt5
+
+    runs = convt5.launches + 3 * sum(t.replays.values())
+    if convt5.captured != 3 * sum(t.captures.values()) or runs != 3 * steps:
+        fail(f"convt5's kernels ran {runs} times ({convt5.captured} captured in "
+             f"{t.captures} captures) in {steps} steps ({what})")
+    CONVT5_RUNS[what] = runs
+
+
+CONVT5_RUNS = {}   # the convt5 kernels' runs by path, phases 4 and 4c
 
 
 def adam_runs(t, launches, captured, what):
@@ -656,6 +835,7 @@ def drive_main_path(conv5_mod, profile_dir=None):
     from vaegam_tpu_torch.data import DeviceResidentLoader
     from vaegam_tpu_torch.models import VAEGAMConfig, forward
     from vaegam_tpu_torch.ops.adam import adam
+    from vaegam_tpu_torch.ops.convt5 import convt5
     from vaegam_tpu_torch.train import Trainer
     from vaegam_tpu_torch.utils.tree import tree_map
 
@@ -669,6 +849,7 @@ def drive_main_path(conv5_mod, profile_dir=None):
 
     conv5_mod.conv5.launches = 0
     adam.launches = adam.captured = 0
+    convt5.launches = convt5.captured = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     epoch_loss = trainer.train_epoch(loader)
@@ -686,6 +867,7 @@ def drive_main_path(conv5_mod, profile_dir=None):
         losses.append(loss)
     forwards = len(loader) + TIMED_STEPS
     launches = conv5_mod.conv5.launches
+    convt5_runs(trainer, forwards, "train_step")
     adam_launches, adam_captured = adam.launches, adam.captured
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
 
@@ -842,6 +1024,7 @@ def drive_epoch_scan(conv5_mod):
     from vaegam_tpu_torch.data import DeviceResidentLoader
     from vaegam_tpu_torch.models import VAEGAMConfig
     from vaegam_tpu_torch.ops.adam import adam
+    from vaegam_tpu_torch.ops.convt5 import convt5
     from vaegam_tpu_torch.tools.common import graph_pool_mib
     from vaegam_tpu_torch.train import Trainer
 
@@ -860,9 +1043,12 @@ def drive_epoch_scan(conv5_mod):
         torch.cuda.synchronize()
         conv5_mod.conv5.launches = conv5_mod.conv5.captured = 0
         adam.launches = adam.captured = 0
+        convt5.launches = convt5.captured = 0
         losses = [t.train_epoch(loader) for _ in range(epochs)]
         torch.cuda.synchronize()
         tag = f"scan_{'replay' if scan else 'eager'}_{'det' if cfg is config else 'bf16'}"
+        if cfg is config:   # the bf16 recipe's convt5 is bf16: the stock op
+            convt5_runs(t, epochs * steps, tag)
         adam_by_path[tag] = adam_runs(t, adam.launches, adam.captured, tag)
         if adam_by_path[tag] != 2 * epochs * steps:
             fail(f"the Adam kernel ran {adam_by_path[tag]} times in {epochs * steps} steps "
@@ -3182,16 +3368,18 @@ def main(argv=None) -> int:
     if log.exists():
         print(log.read_text().strip())
     count_hmma(lib)
-    t0 = time.perf_counter()
-    adam_lib = build.build("adam")
-    print(f"built {adam_lib.name} in {time.perf_counter() - t0:.1f} s")
-    log = adam_lib.with_name(adam_lib.name + ".log")
-    if log.exists():
-        print(log.read_text().strip())
+    for name in ("adam", "convt5"):
+        t0 = time.perf_counter()
+        built = build.build(name)
+        print(f"built {built.name} in {time.perf_counter() - t0:.1f} s")
+        log = built.with_name(built.name + ".log")
+        if log.exists():
+            print(log.read_text().strip())
     lap("1_2_card_build")
 
     # 3. kernels vs plain versions
     err, timing = check_conv5(conv5_mod)
+    convt5_check = check_convt5()
     adam_check = check_adam()
     lap("3_kernels")
 
@@ -3300,7 +3488,15 @@ def main(argv=None) -> int:
         "bound_by": "bytes", "bound_bytes": adam_check["bound_bytes"],
         "in_step_ms": eager_prof["adam_ms_per_step"],
     }
-    print(json.dumps({"kernels": [kernel, adam_kernel]}))
+    convt5_kernel = {
+        "name": "convt5", "route": "cuda",
+        "source": "vaegam_tpu_torch/ops/csrc/convt5.cu",
+        "replaces": "none: the decoder's output layer, which the JAX package leaves to XLA "
+                    "and cuDNN serves far from its bound",
+        "launches": CONVT5_RUNS["train_step"], "launches_by_path": dict(CONVT5_RUNS),
+        **{name: convt5_check[name] for name in convt5_check},
+    }
+    print(json.dumps({"kernels": [kernel, adam_kernel, convt5_kernel]}))
     print(json.dumps({"step_ms_median": step_ms, "vols_per_s": BATCH * 1e3 / step_ms,
                       "step_ms_min": min(all_ms), "step_ms_max": max(all_ms),
                       "batch": BATCH, "steps": TIMED_STEPS, "peak_mem_gib": peak_gib}))

@@ -359,8 +359,9 @@ def test_bf16_recipe_matches_jax(case):
     <= 3.0e-3; the two backends round the bf16 convs differently, and the
     bf16-vs-fp32 gap itself is up to 9e-3); the port's bf16 loss within 1%
     of its own fp32 loss, as tests/test_networks.py holds JAX.  Dtypes:
-    the bf16 stack's convs take bf16 activations and weights (fp32 for
-    convt5 under dec_fp32_final, fp32 for an fp32 stack), no mean runs in
+    the bf16 stack's convs take bf16 activations and weights (an fp32
+    convt5, under dec_fp32_final or in an fp32 stack, through the convt5
+    op), no mean runs in
     bf16 (norm statistics fp32), maps and loss come out fp32.
     """
     jc, pc, params, consts, tp, tc = make_model(THIN)
@@ -393,9 +394,10 @@ def test_bf16_recipe_matches_jax(case):
     # an fp32 conv5 runs through the conv5 op (its plain version here)
     assert len(enc) == (5 if enc_bf16 else 4)
     assert all(c[1] == c[2] == want_enc for c in enc), enc
-    want_dec = [torch.bfloat16 if dec_bf16 else torch.float32] * 5
-    if case == "conv-fp32-final":
-        want_dec[-1] = torch.float32
+    # an fp32 convt5 (an fp32 stack, or under dec_fp32_final) runs through
+    # the convt5 op (its plain version here)
+    half_convt5 = dec_bf16 and case != "conv-fp32-final"
+    want_dec = [torch.bfloat16 if dec_bf16 else torch.float32] * (5 if half_convt5 else 4)
     assert [c[1] for c in dec] == [c[2] for c in dec] == want_dec, dec
     assert log.means and torch.bfloat16 not in log.means
 

@@ -31,6 +31,7 @@ import torch
 
 from ..ops import products
 from ..ops.conv5 import conv5
+from ..ops.convt5 import convt5
 from ..ops.packed_conv import packed_conv3d
 from ..parallel.mesh import all_reduce_sum
 from ..utils import prng
@@ -292,8 +293,12 @@ def decode(params, z, img_shape=REFERENCE_IMG_SHAPE, stat_groups: int = 1,
     and the sigmoid's (its output's) when given; by default the sigmoid
     runs in z's dtype.  Under a data-parallel ``mesh`` z holds this rank's
     rows of each group and ``global_rows`` counts the global decode's rows
-    (see :func:`batch_stat_norm`).  conv_pack=(s_h, s_w) lane-packs the
-    stride-1 layers convt1, convt3 and convt5 (convt5 under fp32_final too).
+    (see :func:`batch_stat_norm`).  An fp32 convt5 (an fp32 stack, or
+    fp32_final) runs through ``ops.convt5`` (the hand-written CUDA kernels on
+    CUDA tensors, their plain version on CPU tensors); a float64 or half
+    precision one, and every one under tpu_products, takes the stock op.
+    conv_pack=(s_h, s_w) lane-packs the stride-1 layers convt1, convt3 and
+    convt5 where it takes the stock op (the kernel keeps precedence).
     tpu_products: every product in the TPU's arithmetic (``ops.products``).
     """
     cd, sd, cp, op = conv_dtype, stat_dtype, conv_pack, products.ops(tpu_products)
@@ -318,7 +323,9 @@ def decode(params, z, img_shape=REFERENCE_IMG_SHAPE, stat_groups: int = 1,
     h = op.relu(_conv_t(h, params["convt4"], 2, conv_dtype=cd, op=op))
     h = norm(h, params["bnt5"])
     if fp32_final and cd is not None:
-        h = _conv_t(h.to(z.dtype), params["convt5"], pack=cp, op=op)
+        h, cd = h.to(z.dtype), None
+    if cd is None and h.dtype == torch.float32 and not tpu_products:
+        h = convt5(h, params["convt5"]["w"], params["convt5"]["b"])
     else:
         h = _conv_t(h, params["convt5"], conv_dtype=cd, pack=cp, op=op)
     if any(crop):
